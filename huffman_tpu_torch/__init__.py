@@ -1,0 +1,19 @@
+"""huffman_tpu_torch — the PyTorch/CUDA port of huffman_tpu.
+
+A second package beside the JAX one, with the same module names: the
+host codebook (codebook.py), the device stages (ops/: histogram, scan and
+the plain PyTorch version of each kernel), the hand-written CUDA kernels
+(csrc/, wrapped in ops/cuda/) for block encode, dense pack and dense
+decode, the dense API (api.py), the .htz v1 container (container.py), the
+golden-codec checks (golden/, verify.py), state conversion from the JAX
+package (convert.py) and the CLI.  It imports torch and numpy, never jax
+and never huffman_tpu.
+"""
+
+from .codebook import Codebook, byte_histogram_host, entropy_bits_per_byte
+from .config import DEFAULT_CONFIG, NUM_SYMBOLS, CodecConfig
+
+__all__ = [
+    "CodecConfig", "DEFAULT_CONFIG", "NUM_SYMBOLS",
+    "Codebook", "entropy_bits_per_byte", "byte_histogram_host",
+]

@@ -1,0 +1,88 @@
+"""Golden CPU encoder: the JAX package's C++ oracle, loaded with ctypes.
+
+There is one oracle, not a copy: this loader compiles the same source,
+huffman_tpu/golden/cpu_codec.cpp (read by path, never imported), with g++
+into the port's own build directory, huffman_tpu_torch/build/.  It writes
+nothing inside huffman_tpu/.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+from ..codebook import Codebook
+from . import numpy_codec
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(os.path.dirname(_PKG), "huffman_tpu", "golden",
+                      "cpu_codec.cpp")
+BUILD_DIR = os.path.join(_PKG, "build")
+_LIB = os.path.join(BUILD_DIR, "libhuffgolden.so")
+_lock = threading.Lock()
+_lib = None
+
+
+def _build() -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # Build under a per-process name and rename: concurrent test workers
+    # may build at once, and a rename is atomic.
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    # no -march=native: the library may be carried to another host
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                    "-o", tmp, SOURCE],
+                   check=True, capture_output=True)
+    os.replace(tmp, _LIB)
+
+
+def load_library() -> ctypes.CDLL:
+    """Load (building if needed) the golden codec shared library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not os.path.exists(SOURCE):
+            raise FileNotFoundError(f"golden codec source not found: {SOURCE}")
+        if (not os.path.exists(_LIB)
+                or os.path.getmtime(_LIB) < os.path.getmtime(SOURCE)):
+            _build()
+        lib = ctypes.CDLL(_LIB)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.huff_encode_bytes.restype = ctypes.c_uint64
+        lib.huff_encode_bytes.argtypes = [
+            u8p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint32),
+            ctypes.POINTER(ctypes.c_int32), u8p]
+        _lib = lib
+        return lib
+
+
+def _as_u8(a) -> np.ndarray:
+    if isinstance(a, (bytes, bytearray)):
+        return np.frombuffer(a, dtype=np.uint8)
+    return np.ascontiguousarray(a, dtype=np.uint8).reshape(-1)
+
+
+def encode(data, cb: Codebook) -> tuple[np.ndarray, int]:
+    """Golden encode. Returns (packed MSB-first bytes, total_bits)."""
+    arr = _as_u8(data)
+    if arr.size == 0:
+        return np.zeros(0, dtype=np.uint8), 0
+    lib = load_library()
+    max_len = max(int(cb.max_len), 1)
+    out = np.zeros(arr.size * max_len // 8 + 16, dtype=np.uint8)
+    codes = np.ascontiguousarray(cb.codes, dtype=np.uint32)
+    lens = np.ascontiguousarray(cb.lengths, dtype=np.int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    total_bits = lib.huff_encode_bytes(
+        arr.ctypes.data_as(u8p), arr.size,
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out.ctypes.data_as(u8p))
+    return out[: (total_bits + 7) // 8].copy(), int(total_bits)
+
+
+__all__ = ["encode", "load_library", "numpy_codec", "SOURCE"]

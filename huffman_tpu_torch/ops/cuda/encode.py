@@ -1,0 +1,55 @@
+"""Wrapper of the CUDA block encoder (K1, csrc/encode.cu)."""
+
+from __future__ import annotations
+
+import torch
+
+from .. import Counter
+from .. import encode as plain
+from . import _build
+
+SOURCE = "huffman_tpu_torch/csrc/encode.cu"
+REPLACES = "huffman_tpu/ops/pallas/encode.py:716"
+launches = Counter()
+
+MAX_BLOCK_BYTES = 4096              # one thread per 4 bytes, 1024 threads
+MAX_CAPACITY_WORDS = 200 * 1024 // 4    # the block's words in shared memory
+
+
+def encode_blocks(byte_blocks: torch.Tensor, codes: torch.Tensor,
+                  lengths: torch.Tensor, valid_bytes: torch.Tensor,
+                  capacity_words: int):
+    """ops.encode.encode_blocks on the card; same arguments and results.
+    Code lengths must lie in [0, 24] (api.encode checks on the host)."""
+    if byte_blocks.device.type == "cpu":
+        return plain.encode_blocks(byte_blocks, codes, lengths, valid_bytes,
+                                   capacity_words)
+    dev = byte_blocks.device
+    if dev.type != "cuda":
+        raise ValueError(f"encode_blocks: unsupported device {dev}")
+    nb, bb = byte_blocks.shape
+    cap = int(capacity_words)
+    if bb % 4 or not 0 < bb <= MAX_BLOCK_BYTES:
+        raise ValueError(f"encode kernel needs block_bytes a multiple of 4 "
+                         f"in [4, {MAX_BLOCK_BYTES}], got {bb}")
+    if not 0 < cap <= MAX_CAPACITY_WORDS:
+        raise ValueError(f"encode kernel needs capacity_words in "
+                         f"[1, {MAX_CAPACITY_WORDS}], got {cap}")
+    _build.require(byte_blocks, "byte_blocks", torch.uint8, (nb, bb), dev)
+    _build.require(codes, "codes", torch.int32, (256,), dev)
+    _build.require(lengths, "lengths", torch.int32, (256,), dev)
+    _build.require(valid_bytes, "valid_bytes", torch.int32, (nb,), dev)
+    streams = torch.empty((nb, cap), dtype=torch.int32, device=dev)
+    bits = torch.empty(nb, dtype=torch.int32, device=dev)
+    if nb == 0:
+        return streams, bits
+    lib = _build.load_library()
+    grid = _build.launch_geometry(dev, nb, 1, 8)
+    with torch.cuda.device(dev):          # the launch uses the current device
+        err = lib.huff_encode_blocks(
+            byte_blocks.data_ptr(), codes.data_ptr(), lengths.data_ptr(),
+            valid_bytes.data_ptr(), streams.data_ptr(), bits.data_ptr(), nb,
+            bb // 4, cap, grid, _build.stream_ptr(dev))
+    _build.check(err, "encode")
+    launches.n += 1
+    return streams, bits
