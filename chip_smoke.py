@@ -7,18 +7,33 @@ Phases, each printing one JSON line:
   1. device  - nvidia-smi's name and power limit, torch and CUDA versions.
   2. build   - nvcc builds every kernel of csrc/ for sm_90a; seconds taken
                and the -Xptxas -v register/spill lines.
-  3. kernels - each kernel (K1 encode, pack, K4 decode) against its plain
-               PyTorch version on the card, exactly: at the main path's
+  3. kernels - each dense kernel (K1 encode, pack, K4 decode) against its
+               plain PyTorch version on the card, exactly: at the main path's
                shapes (64 MiB, 65536 blocks, capacity 256 words) with CUDA
                event times of both; then a uniform 256-symbol input (every
                block exactly at capacity), a 14-bit codebook, a 20-bit one
                (decode table in device memory), pack alone on blocks that
                spill into their neighbours, and small edge cases.
-  4. main    - the main path at 1 GiB, 32 symbols at H = 2.2066: api.encode
+  4. main    - the dense path at 1 GiB, 32 symbols at H = 2.2066: api.encode
                bit-exact against the C++ golden encoder, container dumps ->
                loads -> api.decode equal to the input, decode_range over a
                span that crosses blocks; launch counts read around that run;
                end-to-end and kernel-only rates.
+  5. wide_kernels - each wide kernel (K5 substream encode, the schedule and
+               K7 emit, K8 decode) against its plain version, exactly: at
+               64 MiB (256 tiles) of the main profile with CUDA event times;
+               uniform 256 symbols (8-bit codes); a 12-bit codebook whose
+               longest codes fill substreams (96 words, the reader's buffer
+               at 111 bits); a narrow book (mcl <= 4); partial, sub-tile and
+               non-power-of-two tile counts.  Small cases also against the
+               format's specification, tile by tile.
+  6. wide_main - the wide path on the same 1 GiB: wide.encode_wide ->
+               container dumps_wide -> loads_wide -> wide.decode_wide equal
+               to the input, decode_wide_range across tiles; launch counts
+               read around that run; the first 16 tiles and the last one
+               equal to the specification's encoder; end-to-end and
+               kernel-only rates, a per-stage wall breakdown, and bits per
+               byte beside the dense stream's.
 Then the kernels line, the card's nvidia-smi line, and the result line.
 Any mismatch raises and the script exits non-zero, as it does when no
 CUDA device is available.  Imports nothing of JAX.
@@ -36,6 +51,7 @@ import torch
 
 MAIN_BYTES = 1 << 30            # the JAX README's spec size
 KERNEL_BYTES = 64 << 20         # the kernel comparisons' size
+WIDE_GOLDEN_TILES = 16          # leading tiles checked against the spec
 
 
 def emit(obj) -> None:
@@ -254,7 +270,7 @@ def phase_kernels(card: str, errs: dict, times: dict) -> None:
                          card, errs, codebook=cb))
 
 
-def phase_main(card: str) -> dict:
+def phase_main(card: str, data: np.ndarray) -> dict:
     from huffman_tpu_torch import api, container, golden
     from huffman_tpu_torch.golden.numpy_codec import packed_bytes_to_words
     from huffman_tpu_torch.ops import decode as p_decode
@@ -263,11 +279,7 @@ def phase_main(card: str) -> dict:
     from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
     from huffman_tpu_torch.ops.cuda import encode as k_encode
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
-    from huffman_tpu_torch.utils import testdata
 
-    t0 = time.perf_counter()
-    data = testdata.entropy_stream(MAIN_BYTES, seed=0)
-    gen_s = time.perf_counter() - t0
     counters = [k_encode.launches, k_pack.launches, k_decode.launches,
                 p_encode.cuda_calls, p_pack.cuda_calls, p_decode.cuda_calls]
 
@@ -335,13 +347,341 @@ def phase_main(card: str) -> dict:
           "golden_bit_exact": True, "roundtrip_exact": True,
           "decode_range": [r0, r1], "decode_range_exact": True,
           "launches": launches, "plain_calls_on_cuda": plain_calls,
-          "datagen_s": gen_s, "golden_encode_s": golden_s,
+          "golden_encode_s": golden_s,
           "encode_e2e_s": enc_s, "decode_e2e_s": dec_s,
           "encode_e2e_GBps": gb / enc_s, "decode_e2e_GBps": gb / dec_s,
           "encode_kernels_ms": enc_ms, "decode_kernel_ms": dec_ms,
           "encode_kernels_GBps": gb / (enc_ms / 1e3),
           "decode_kernel_GBps": gb / (dec_ms / 1e3),
           "card": card})
+    return launches, enc.total_bits
+
+
+class WideStages:
+    """The wide path's kernels (K5, the schedule and K7, K8) next to their
+    plain versions, on device-resident inputs prepared once."""
+
+    def __init__(self, data: np.ndarray, codebook=None):
+        from huffman_tpu_torch import api, wide
+        from huffman_tpu_torch.config import CodecConfig
+        from huffman_tpu_torch.ops.decode import table_entries
+        dev = torch.device("cuda")
+        self.rows, self.valid = wide.device_substreams(data, dev)
+        self.cb = codebook or api._codebook_for(self.rows, data.size,
+                                                CodecConfig())
+        self.mcl = wide.reader_mcl(self.cb)
+        self.slot = wide.slot_words(self.mcl)
+        self.codes = torch.from_numpy(
+            self.cb.codes.astype(np.uint32).view(np.int32)).cuda()
+        self.lengths = torch.from_numpy(self.cb.lengths.astype(np.int32)).cuda()
+        self.nt = self.rows.shape[0] // 1024
+        self.tile_bytes = torch.from_numpy(
+            wide.tile_bytes(data.size, 0, self.nt)).cuda()
+        self.table = torch.from_numpy(table_entries(self.cb, self.mcl)).cuda()
+
+    def sub_encode(self, mod):
+        return mod.sub_encode(self.rows, self.codes, self.lengths, self.valid,
+                              self.slot)
+
+    def schedule(self, mod, l2):
+        return mod.schedule_counts(l2, self.tile_bytes, self.mcl)
+
+    def emit(self, mod, streams, l2, bases, tile_words, offs, n_words: int):
+        return mod.emit_planes(streams, l2, self.tile_bytes, bases, tile_words,
+                               offs, self.mcl, n_words)
+
+    def decode(self, mod, payload, offs, tile_words, bases):
+        return mod.decode_tiles(payload, offs, tile_words, bases,
+                                self.tile_bytes, self.table, self.mcl)
+
+
+def spec_tile_ok(data: np.ndarray, t: int, cb, payload: np.ndarray,
+                 start: int, tile_words: int, bases: np.ndarray) -> bool:
+    """Tile t of an encoded payload (P0 at `start`) equals the format
+    specification's encoder on that tile."""
+    from huffman_tpu_torch.golden import wide_codec as W
+    p0, p1, b = W.encode_tile(data[t * W.TILE_BYTES: (t + 1) * W.TILE_BYTES],
+                              cb.codes, cb.lengths)
+    return (p0.size == tile_words and np.array_equal(bases, b)
+            and np.array_equal(payload[start: start + tile_words], p0)
+            and np.array_equal(payload[start + tile_words:
+                                       start + 2 * tile_words], p1))
+
+
+def compare_wide(name: str, data: np.ndarray, card: str, errs: dict,
+                 codebook=None, reps: int = 0, plain_reps: int = 0,
+                 times: dict | None = None, spec_tiles: int = 0) -> dict:
+    """Each wide kernel against its plain version on the same device
+    inputs; every output must match exactly, the decoded bytes must equal
+    the input, and the first `spec_tiles` tiles the specification."""
+    from huffman_tpu_torch import wide
+    from huffman_tpu_torch.ops import wide as p_wide
+    from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
+    from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
+    from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
+
+    st = WideStages(data, codebook)
+    rec = {"phase": "wide_kernels", "case": name, "bytes": int(data.size),
+           "tiles": st.nt, "mcl": st.mcl, "slot_words": st.slot}
+    s_k, b_k, l_k = st.sub_encode(k_sub)
+    s_p, b_p, l_p = st.sub_encode(p_wide)
+    e_sub = max(max_abs_err(s_k, s_p), max_abs_err(b_k, b_p),
+                max_abs_err(l_k, l_p))
+    require(e_sub == 0, f"{name}: K5 kernel != plain (max err {e_sub})")
+    bases, tw = st.schedule(k_emit, l_k)
+    bases_p, tw_p = st.schedule(p_wide, l_k)
+    e_sched = max(max_abs_err(bases, bases_p), max_abs_err(tw, tw_p))
+    require(e_sched == 0, f"{name}: schedule kernel != plain "
+                          f"(max err {e_sched})")
+    offs, n_words = wide.payload_offsets(tw)
+    pay_k = st.emit(k_emit, s_k, l_k, bases, tw, offs, n_words)
+    pay_p = st.emit(p_wide, s_k, l_k, bases, tw, offs, n_words)
+    e_emit = max(e_sched, max_abs_err(pay_k, pay_p))
+    require(e_emit == 0, f"{name}: K7 kernel != plain (max err {e_emit})")
+    o_k = st.decode(k_wdec, pay_k, offs, tw, bases)
+    o_p = st.decode(p_wide, pay_k, offs, tw, bases)
+    e_dec = max_abs_err(o_k, o_p)
+    require(e_dec == 0, f"{name}: K8 kernel != plain (max err {e_dec})")
+    back = o_k.reshape(-1)[: data.size].cpu().numpy()
+    require(np.array_equal(back, data), f"{name}: decoded bytes != input")
+    payload = pay_k.cpu().numpy().view(np.uint32)
+    tw_h, offs_h, bases_h = tw.cpu().numpy(), offs.cpu().numpy(), \
+        bases.cpu().numpy()
+    for t in range(min(spec_tiles, st.nt)):
+        require(spec_tile_ok(data, t, st.cb, payload, int(offs_h[t]),
+                             int(tw_h[t]), bases_h[t]),
+                f"{name}: tile {t} != the format specification")
+    for k, e in (("wide_sub_encode", e_sub), ("wide_emit", e_emit),
+                 ("wide_decode", e_dec)):
+        errs[k] = max(errs.get(k, 0), e)
+    rec.update({"payload_words": n_words,
+                "bits_per_byte": n_words * 32 / max(data.size, 1),
+                "max_substream_bits": int(b_k.max()),
+                "spec_tiles_checked": min(spec_tiles, st.nt),
+                "max_abs_err": {"wide_sub_encode": e_sub,
+                                "wide_emit": e_emit, "wide_decode": e_dec}})
+    if reps:
+        def emit_all(mod):
+            b, w = st.schedule(mod, l_k)
+            return st.emit(mod, s_k, l_k, b, w, offs, n_words)
+        t = {
+            "wide_sub_encode": (cuda_ms(lambda: st.sub_encode(k_sub), reps),
+                                cuda_ms(lambda: st.sub_encode(p_wide),
+                                        plain_reps)),
+            "wide_schedule": (cuda_ms(lambda: st.schedule(k_emit, l_k), reps),
+                              cuda_ms(lambda: st.schedule(p_wide, l_k),
+                                      plain_reps)),
+            "wide_emit": (cuda_ms(lambda: emit_all(k_emit), reps),
+                          cuda_ms(lambda: emit_all(p_wide), plain_reps)),
+            "wide_decode": (
+                cuda_ms(lambda: st.decode(k_wdec, pay_k, offs, tw, bases),
+                        reps),
+                cuda_ms(lambda: st.decode(p_wide, pay_k, offs, tw, bases),
+                        plain_reps)),
+        }
+        rec["ms"] = {k: {"kernel": v[0], "plain": v[1]} for k, v in t.items()}
+        rec["ms_note"] = "wide_emit is the schedule and the emit kernel"
+        rec["card"] = card
+        if times is not None:
+            times.update(t)
+    return rec
+
+
+def phase_wide_kernels(card: str, errs: dict, times: dict) -> None:
+    from huffman_tpu_torch.codebook import Codebook
+    from huffman_tpu_torch.golden.wide_codec import TILE_BYTES
+    from huffman_tpu_torch.utils import testdata
+
+    main = testdata.entropy_stream(KERNEL_BYTES, seed=1)
+    emit(compare_wide("main_path_shapes", main, card, errs, reps=20,
+                      plain_reps=2, times=times, spec_tiles=2))
+
+    uni = testdata.uniform_random(16 << 20, seed=2)
+    rec = compare_wide("uniform256_codes8", uni, card, errs,
+                       codebook=Codebook.from_lengths(np.full(256, 8)),
+                       spec_tiles=1)
+    require(rec["bits_per_byte"] == 8.0, "uniform: not 8 bits/byte")
+    emit(rec)
+
+    # the format's maximum: 12-bit codes fill whole substreams (96 words)
+    lens = np.zeros(256, np.int32)
+    lens[:13] = list(range(1, 13)) + [12]          # Kraft sum exactly 1
+    p = 2.0 ** -lens[:13]
+    rng = np.random.default_rng(3)
+    d12 = rng.choice(13, size=16 << 20, p=p / p.sum()).astype(np.uint8)
+    d12[: 4 * TILE_BYTES] = rng.integers(11, 13, size=4 * TILE_BYTES)
+    rec = compare_wide("codes12_full_substreams", d12, card, errs,
+                       codebook=Codebook.from_lengths(lens), spec_tiles=1)
+    require(rec["max_substream_bits"] == 256 * 12, "no 96-word substream")
+    emit(rec)
+
+    lens = np.zeros(256, np.int32)
+    lens[:8] = [2, 2, 3, 3, 4, 4, 4, 4]
+    p = 2.0 ** -lens[:8]
+    d4 = rng.choice(8, size=4 << 20, p=p / p.sum()).astype(np.uint8)
+    rec = compare_wide("narrow_mcl4", d4, card, errs,
+                       codebook=Codebook.from_lengths(lens), spec_tiles=1)
+    require(rec["mcl"] == 4, "narrow book is not mcl 4")
+    emit(rec)
+
+    # partial last tile with 3 (no power of two) tiles; one sub-tile input
+    edge = testdata.skewed(3 * TILE_BYTES - 5000, num_symbols=40, seed=5)
+    emit(compare_wide("tiles3_partial", edge, card, errs, spec_tiles=3))
+    small = testdata.skewed(5000, num_symbols=256, decay=0.97, seed=6)
+    emit(compare_wide("subtile_5000", small, card, errs, spec_tiles=1))
+
+
+def wide_breakdown(data: np.ndarray, card: str) -> dict:
+    """Host wall of each stage of the wide path, with a synchronize after
+    each: the stages of wide.encode_wide and wide.decode_wide, called one
+    by one."""
+    from huffman_tpu_torch import api, container, wide
+    from huffman_tpu_torch.config import CodecConfig
+    from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
+    from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
+    from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
+    from huffman_tpu_torch.ops.decode import table_entries
+
+    ms = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    dev = torch.device("cuda")
+    n = data.size
+    rows, valid = stage("h2d_input", lambda: wide.device_substreams(data, dev))
+    cb = stage("histogram_codebook",
+               lambda: api._codebook_for(rows, n, CodecConfig()))
+    mcl = wide.reader_mcl(cb)
+    codes = torch.from_numpy(cb.codes.astype(np.uint32).view(np.int32)).cuda()
+    lengths = torch.from_numpy(cb.lengths.astype(np.int32)).cuda()
+    streams, bits, l2 = stage("k5_sub_encode", lambda: k_sub.sub_encode(
+        rows, codes, lengths, valid, wide.slot_words(mcl)))
+    stage("miss_check", lambda: bool((bits < 0).any()))
+    nt = rows.shape[0] // 1024
+    tb = torch.from_numpy(wide.tile_bytes(n, 0, nt)).cuda()
+    bases, tw = stage("schedule", lambda: k_emit.schedule_counts(l2, tb, mcl))
+    offs, n_words = stage("offsets_and_sync", lambda: wide.payload_offsets(tw))
+    payload = stage("k7_emit", lambda: k_emit.emit_planes(
+        streams, l2, tb, bases, tw, offs, mcl, n_words))
+    enc = stage("d2h_payload", lambda: wide.WideEncoded(
+        payload.cpu().numpy().view(np.uint32), tw.cpu().numpy(),
+        bases.cpu().numpy(), cb, n, CodecConfig()))
+    del rows, valid, streams, bits, l2, payload
+    blob = stage("container_dumps", lambda: container.dumps_wide(enc))
+    enc = stage("container_loads", lambda: container.loads_wide(blob))
+    del blob
+    ops = stage("h2d_payload_and_tables", lambda: (
+        torch.from_numpy(enc.payload_words.view(np.int32)).cuda(),
+        torch.from_numpy(np.concatenate([[0], np.cumsum(
+            2 * enc.tile_words.astype(np.int64))[:-1]])).cuda(),
+        torch.from_numpy(enc.tile_words).cuda(),
+        torch.from_numpy(enc.bases).cuda(),
+        torch.from_numpy(table_entries(cb, mcl)).cuda()))
+    out = stage("k8_decode", lambda: k_wdec.decode_tiles(
+        ops[0], ops[1], ops[2], ops[3], tb, ops[4], mcl))
+    back = stage("d2h_output", lambda: out.reshape(-1)[:n].cpu().numpy())
+    require(np.array_equal(back, data), "breakdown: decoded bytes != input")
+    return {"phase": "wide_breakdown", "bytes": n, "ms": ms, "card": card}
+
+
+def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
+    from huffman_tpu_torch import container, wide
+    from huffman_tpu_torch.golden.wide_codec import TILE_BYTES
+    from huffman_tpu_torch.ops import wide as p_wide
+    from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
+    from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
+    from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
+
+    counters = [k_sub.launches, k_emit.schedule_launches, k_emit.launches,
+                k_wdec.launches, *p_wide.cuda_calls.values()]
+
+    # --- the wide path, with every count at 0 just before it ---
+    for c in counters:
+        c.n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = wide.encode_wide(data, device="cuda")
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = container.dumps_wide(enc)
+    dumps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc2 = container.loads_wide(blob)
+    loads_s = time.perf_counter() - t0
+    del blob
+    t0 = time.perf_counter()
+    back = wide.decode_wide(enc2, device="cuda")
+    dec_s = time.perf_counter() - t0
+    r0, r1 = 5 * TILE_BYTES - 1000, 7 * TILE_BYTES + 333
+    part = wide.decode_wide_range(enc2, r0, r1, device="cuda")
+    torch.cuda.synchronize()
+    launches = {"wide_sub_encode": k_sub.launches.n,
+                "wide_schedule": k_emit.schedule_launches.n,
+                "wide_emit": k_emit.launches.n,
+                "wide_decode": k_wdec.launches.n}
+    plain_calls = {k: c.n for k, c in p_wide.cuda_calls.items()}
+    # --- end of the wide path ---
+
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the wide path never launched: {launches}")
+    require(not any(plain_calls.values()),
+            f"a plain version ran on CUDA tensors: {plain_calls}")
+    require(np.array_equal(back, data), "wide container roundtrip != input")
+    require(np.array_equal(part, data[r0:r1]), "decode_wide_range != input")
+    nt = len(enc.tile_words)
+    require(nt == -(-data.size // TILE_BYTES), f"tile count {nt}")
+    starts = np.concatenate([[0], np.cumsum(2 * enc.tile_words.astype(
+        np.int64))])
+    checked = list(range(WIDE_GOLDEN_TILES)) + [nt - 1]
+    t0 = time.perf_counter()
+    for t in checked:
+        require(spec_tile_ok(data, t, enc.codebook, enc.payload_words,
+                             int(starts[t]), int(enc.tile_words[t]),
+                             enc.bases[t]),
+                f"wide tile {t} != the format specification")
+    spec_s = time.perf_counter() - t0
+
+    # kernel-only rates on device-resident data at the same size: encode is
+    # K5 + schedule + offsets + K7, decode is K8
+    st = WideStages(data, enc.codebook)
+    n_words = enc.payload_words.size
+
+    def enc_kernels():
+        s, _, l2 = st.sub_encode(k_sub)
+        b, w = st.schedule(k_emit, l2)
+        offs, nw = wide.payload_offsets(w)
+        return st.emit(k_emit, s, l2, b, w, offs, nw), b, w, offs
+
+    pay, bases, tw, offs = enc_kernels()
+    require(np.array_equal(pay.cpu().numpy().view(np.uint32),
+                           enc.payload_words), "device-resident encode != api")
+    enc_ms = cuda_ms(enc_kernels, 5)
+    dec_ms = cuda_ms(lambda: st.decode(k_wdec, pay, offs, tw, bases), 5)
+    del st, pay
+    gb = data.size / 1e9
+    emit({"phase": "wide_main", "bytes": int(data.size), "tiles": nt,
+          "payload_words": int(n_words),
+          "bits_per_byte": n_words * 32 / data.size,
+          "dense_bits_per_byte": dense_bits / data.size,
+          "codebook_max_len": enc.codebook.max_len,
+          "roundtrip_exact": True, "decode_range": [r0, r1],
+          "decode_range_exact": True, "spec_tiles_checked": checked,
+          "spec_check_s": spec_s, "launches": launches,
+          "plain_calls_on_cuda": plain_calls,
+          "encode_e2e_s": enc_s, "decode_e2e_s": dec_s,
+          "container_dumps_s": dumps_s, "container_loads_s": loads_s,
+          "encode_e2e_GBps": gb / enc_s, "decode_e2e_GBps": gb / dec_s,
+          "encode_kernels_ms": enc_ms, "decode_kernel_ms": dec_ms,
+          "encode_kernels_GBps": gb / (enc_ms / 1e3),
+          "decode_kernel_GBps": gb / (dec_ms / 1e3), "card": card})
+    emit(wide_breakdown(data, card))
     return launches
 
 
@@ -354,6 +694,10 @@ def main() -> int:
     from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
     from huffman_tpu_torch.ops.cuda import encode as k_encode
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
+    from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
+    from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
+    from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
+    from huffman_tpu_torch.utils import testdata
 
     card = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
@@ -372,9 +716,19 @@ def main() -> int:
     errs: dict = {}
     times: dict = {}
     phase_kernels(card, errs, times)
-    launches = phase_main(card)
+    phase_wide_kernels(card, errs, times)
+    t0 = time.perf_counter()
+    data = testdata.entropy_stream(MAIN_BYTES, seed=0)
+    emit({"phase": "datagen", "bytes": MAIN_BYTES,
+          "seconds": time.perf_counter() - t0})
+    launches, dense_bits = phase_main(card, data)
+    launches.update(phase_wide_main(card, data, dense_bits))
 
-    mods = {"encode": k_encode, "pack": k_pack, "dense_decode": k_decode}
+    # wide_emit's launches count its emit kernel; the schedule kernel, its
+    # first pass, is checked in the wide_main record
+    mods = {"encode": k_encode, "pack": k_pack, "dense_decode": k_decode,
+            "wide_sub_encode": k_sub, "wide_emit": k_emit,
+            "wide_decode": k_wdec}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": m.SOURCE,
          "replaces": m.REPLACES, "launches": launches[name],

@@ -3,11 +3,12 @@
 A second package beside the JAX one, with the same module names: the
 host codebook (codebook.py), the device stages (ops/: histogram, scan and
 the plain PyTorch version of each kernel), the hand-written CUDA kernels
-(csrc/, wrapped in ops/cuda/) for block encode, dense pack and dense
-decode, the dense API (api.py), the .htz v1 container (container.py), the
-golden-codec checks (golden/, verify.py), state conversion from the JAX
-package (convert.py) and the CLI.  It imports torch and numpy, never jax
-and never huffman_tpu.
+(csrc/, wrapped in ops/cuda/) for block encode, dense pack, dense decode,
+substream encode, wide emit and wide decode, the dense API (api.py), the
+wide format (wide.py), the .htz v1 and v3 containers (container.py), the
+golden checks (golden/, verify.py), state conversion from the JAX package
+(convert.py) and the CLI.  It imports torch and numpy, never jax and never
+the huffman_tpu package.
 """
 
 from .codebook import Codebook, byte_histogram_host, entropy_bits_per_byte

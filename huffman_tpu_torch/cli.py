@@ -1,14 +1,16 @@
-"""Command-line driver of the port (dense format).
+"""Command-line driver of the port.
 
 Usage:
   python -m huffman_tpu_torch encode FILE... [-o OUT.htz] [--verify]
-                               [--no-checksum] [--device cuda|cpu]
+                               [--format auto|dense|wide] [--no-checksum]
+                               [--device cuda|cpu]
   python -m huffman_tpu_torch decode FILE.htz... [-o OUT] [--range START:STOP]
                                [--device cuda|cpu]
   python -m huffman_tpu_torch roundtrip FILE... [--device cuda|cpu]
 
-The device defaults to cuda.  `--format wide` and `--mesh` belong to
-parts of the JAX package that are not ported yet, and raise.
+The device defaults to cuda.  --format auto resolves as the JAX package's
+does off a TPU: to dense.  decode reads either container version.  --mesh
+belongs to a part of the JAX package that is not ported yet, and raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import time
 
 import numpy as np
 
-from . import api, container
+from . import api, container, wide
 from .codebook import byte_histogram_host, entropy_bits_per_byte
 from .config import CodecConfig
 
@@ -41,28 +43,42 @@ def _read(path: str) -> np.ndarray:
 
 
 def _refuse_unported(args) -> None:
-    if getattr(args, "format", "dense") == "wide":
-        raise NotImplementedError("--format wide: not yet ported")
     if getattr(args, "mesh", None):
         raise NotImplementedError("--mesh: not yet ported")
+
+
+def _resolve_format(fmt: str) -> str:
+    """'auto' picks what the JAX package picks off a TPU: the dense format
+    (its wide format is the TPU's decode path; which format the card should
+    default to is an open question of PERF.md)."""
+    return "dense" if fmt == "auto" else fmt
 
 
 def cmd_encode(args) -> int:
     _refuse_unported(args)
     cfg = _cfg(args)
+    fmt = _resolve_format(args.format)
     rc = 0
     for path in args.files:
         data = _read(path)
         h = entropy_bits_per_byte(byte_histogram_host(data))
         t0 = time.perf_counter()
-        enc = api.encode(data, cfg, device=args.device)
+        if fmt == "wide":
+            enc = wide.encode_wide(data, cfg, device=args.device)
+        else:
+            enc = api.encode(data, cfg, device=args.device)
         ms = (time.perf_counter() - t0) * 1e3
         out = args.output or (path + ".htz")
         size = container.dump(enc, out, checksum=not args.no_checksum)
         print(f"{path}: {data.size} B, H={h:.4f} bits/B -> {out}: {size} B "
               f"(ratio {size / max(data.size, 1):.4f}) in {ms:.1f} ms "
-              f"on {args.device}")
-        if args.verify:
+              f"on {args.device} ({fmt})")
+        if args.verify and fmt == "wide":
+            ok = np.array_equal(wide.decode_wide(enc, device=args.device),
+                                data)
+            print(f"  verify roundtrip: {'PASS' if ok else 'FAIL'}")
+            rc |= 0 if ok else 1
+        elif args.verify:
             from .verify import verify_encoded
             res = verify_encoded(enc, data)
             print(f"  verify vs golden: {'PASS' if res else 'FAIL'} — "
@@ -75,12 +91,17 @@ def cmd_decode(args) -> int:
     _refuse_unported(args)
     for path in args.files:
         enc = container.load(path)
+        is_wide = isinstance(enc, wide.WideEncoded)
         t0 = time.perf_counter()
         if args.range:
             a, _, b = args.range.partition(":")
-            data = api.decode_range(enc, int(a) if a else 0,
-                                    int(b) if b else enc.n_bytes,
-                                    device=args.device)
+            decode_range = wide.decode_wide_range if is_wide \
+                else api.decode_range
+            data = decode_range(enc, int(a) if a else 0,
+                                int(b) if b else enc.n_bytes,
+                                device=args.device)
+        elif is_wide:
+            data = wide.decode_wide(enc, device=args.device)
         else:
             data = api.decode(enc, device=args.device)
         ms = (time.perf_counter() - t0) * 1e3
@@ -131,7 +152,9 @@ def main(argv=None) -> int:
                     help="bit-exact check against the CPU golden encoder")
     sp.add_argument("--no-checksum", action="store_true",
                     help="skip the container payload CRC-32")
-    sp.add_argument("--format", choices=("dense", "wide"), default="dense")
+    sp.add_argument("--format", choices=("auto", "dense", "wide"),
+                    default="auto",
+                    help="container: dense (v1) or wide (v3); auto = dense")
     sp.add_argument("--mesh", default=None, metavar="N|auto")
     sp.set_defaults(fn=cmd_encode)
 

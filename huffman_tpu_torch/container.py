@@ -1,4 +1,5 @@
-"""The .htz container, version 1 (dense), byte-identical to huffman_tpu's.
+"""The .htz containers, version 1 (dense) and 3 (wide), byte-identical to
+huffman_tpu's.
 
 Layout (integers little-endian), as in huffman_tpu/container.py:
 
@@ -17,7 +18,13 @@ Layout (integers little-endian), as in huffman_tpu/container.py:
                 (the payload bytes are the MSB-first bitstream)
   ...     4     CRC-32 of the payload bytes (when flags bit 0 is set)
 
-Version 3 (the wide format) is not ported yet; loading one raises.
+Version 3 (the wide format, golden/wide_codec.py), as in the JAX package:
+the same header with block_bytes := the tile size (TILE_BYTES), total_bits
+:= payload words * 32 and num_blocks := the tile count; the per-block table
+holds each tile's plane length in words (u32), followed by each tile's
+ROUNDS per-round pull bases (u16: plane words per tile are < 2**16), then
+the payload, tile after tile, each P0 then P1, words little-endian (they
+are the reader's machine words, not a bitstream), then the optional CRC.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import numpy as np
 from .api import Encoded
 from .codebook import Codebook
 from .config import CodecConfig, cdiv
+from .golden.wide_codec import MAXLEN, ROUNDS, TILE_BYTES
+from .wide import WideEncoded
 
 MAGIC = b"HTZ1"
 VERSION = 1
@@ -65,32 +74,43 @@ def container_version(blob: bytes) -> int:
     return _HEADER.unpack_from(blob, 0)[1]
 
 
-def loads(blob: bytes) -> Encoded:
-    """Deserialize container bytes back to an Encoded stream."""
+def _header(blob: bytes) -> tuple:
     if len(blob) < _HEADER.size:
         raise ValueError(
             f"not an HTZ container: {len(blob)} bytes < header size")
-    magic, ver, flags, n_bytes, block_bytes, max_code_len, total_bits, nb = \
-        _HEADER.unpack_from(blob, 0)
-    if magic != MAGIC:
-        raise ValueError(f"not an HTZ container (magic {magic!r})")
-    if ver == WIDE_VERSION:
-        raise ValueError("wide container not yet ported")
+    fields = _HEADER.unpack_from(blob, 0)
+    if fields[0] != MAGIC:
+        raise ValueError(f"not an HTZ container (magic {fields[0]!r})")
+    return fields
+
+
+def _check_payload(blob: bytes, flags: int, pay_off: int,
+                   pay_len: int) -> None:
+    """Raise on a truncated payload, or on a CRC mismatch when the CRC
+    flag is set."""
+    if len(blob) < pay_off + pay_len:
+        raise ValueError("truncated HTZ container")
+    if not flags & FLAG_CRC32:
+        return
+    if len(blob) < pay_off + pay_len + 4:
+        raise ValueError("truncated HTZ container (missing payload CRC)")
+    want = struct.unpack_from("<I", blob, pay_off + pay_len)[0]
+    got = zlib.crc32(blob[pay_off: pay_off + pay_len]) & 0xFFFFFFFF
+    if got != want:
+        raise ValueError(
+            f"HTZ payload CRC mismatch (stored {want:#010x}, computed "
+            f"{got:#010x}) — container corrupt")
+
+
+def loads(blob: bytes) -> Encoded:
+    """Deserialize container bytes (version 1) back to an Encoded stream."""
+    _, ver, flags, n_bytes, block_bytes, max_code_len, total_bits, nb = \
+        _header(blob)
     if ver != VERSION:
         raise ValueError(f"unsupported container version {ver}")
     pay_off = overhead_bytes(nb)
     n_words = cdiv(total_bits, 32)
-    if len(blob) < pay_off + 4 * n_words:
-        raise ValueError("truncated HTZ container")
-    if flags & FLAG_CRC32:
-        if len(blob) < pay_off + 4 * n_words + 4:
-            raise ValueError("truncated HTZ container (missing payload CRC)")
-        want = struct.unpack_from("<I", blob, pay_off + 4 * n_words)[0]
-        got = zlib.crc32(blob[pay_off: pay_off + 4 * n_words]) & 0xFFFFFFFF
-        if got != want:
-            raise ValueError(
-                f"HTZ payload CRC mismatch (stored {want:#010x}, computed "
-                f"{got:#010x}) — container corrupt")
+    _check_payload(blob, flags, pay_off, 4 * n_words)
     off = _HEADER.size
     lens = np.frombuffer(blob, dtype=np.uint8, count=256, offset=off)
     block_bits = np.frombuffer(blob, dtype=np.uint32, count=nb,
@@ -105,13 +125,72 @@ def loads(blob: bytes) -> Encoded:
                                       max_code_len=max_code_len))
 
 
-def dump(enc: Encoded, path: str, checksum: bool = True) -> int:
-    blob = dumps(enc, checksum)
+def dumps_wide(enc: WideEncoded, checksum: bool = True) -> bytes:
+    """Serialize a WideEncoded stream (container version 3)."""
+    nt = len(enc.tile_words)
+    bases = np.asarray(enc.bases)
+    if bases.shape != (nt, ROUNDS):
+        raise ValueError("bases shape mismatch")
+    header = _HEADER.pack(MAGIC, WIDE_VERSION, FLAG_CRC32 if checksum else 0,
+                          enc.n_bytes, TILE_BYTES, enc.config.max_code_len,
+                          int(enc.payload_words.size) * 32, nt)
+    lens = np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
+    counts = np.asarray(enc.tile_words, dtype="<u4").tobytes()
+    payload = np.ascontiguousarray(enc.payload_words, dtype="<u4").tobytes()
+    crc = (struct.pack("<I", zlib.crc32(payload) & 0xFFFFFFFF)
+           if checksum else b"")
+    return (header + lens + counts + bases.astype("<u2").tobytes() + payload
+            + crc)
+
+
+def loads_wide(blob: bytes) -> WideEncoded:
+    """Deserialize container version 3 to a WideEncoded stream.  The tile
+    size and the code-length cap are checked: either out of range would
+    misdecode without an error."""
+    _, ver, flags, n_bytes, tile, max_code_len, bits, nt = _header(blob)
+    if ver != WIDE_VERSION:
+        raise ValueError(f"not a version-{WIDE_VERSION} (wide) HTZ container")
+    if tile != TILE_BYTES:
+        raise ValueError(
+            f"wide container tile size {tile} != supported {TILE_BYTES}")
+    if not 1 <= max_code_len <= MAXLEN:
+        raise ValueError(
+            f"wide container max_code_len {max_code_len} outside "
+            f"[1, {MAXLEN}]")
+    pay_off = overhead_bytes(nt) + 2 * ROUNDS * nt
+    n_words = bits // 32
+    _check_payload(blob, flags, pay_off, 4 * n_words)
+    off = _HEADER.size
+    lens = np.frombuffer(blob, dtype=np.uint8, count=256, offset=off)
+    if lens.max() > MAXLEN:
+        raise ValueError(f"wide container holds {int(lens.max())}-bit codes; "
+                         f"the format takes at most {MAXLEN}")
+    off += 256
+    counts = np.frombuffer(blob, dtype="<u4", count=nt,
+                           offset=off).astype(np.int32)
+    off += 4 * nt
+    bases = np.frombuffer(blob, dtype="<u2", count=nt * ROUNDS,
+                          offset=off).astype(np.int32).reshape(nt, ROUNDS)
+    words = np.frombuffer(blob, dtype="<u4", count=n_words,
+                          offset=pay_off).astype(np.uint32)
+    return WideEncoded(payload_words=words, tile_words=counts, bases=bases,
+                       codebook=Codebook.from_lengths(lens.astype(np.int32)),
+                       n_bytes=n_bytes,
+                       config=CodecConfig(max_code_len=max_code_len))
+
+
+def dump(enc: Encoded | WideEncoded, path: str, checksum: bool = True) -> int:
+    """Write either container version, by the type of `enc`."""
+    blob = (dumps_wide(enc, checksum) if isinstance(enc, WideEncoded)
+            else dumps(enc, checksum))
     with open(path, "wb") as f:
         f.write(blob)
     return len(blob)
 
 
-def load(path: str) -> Encoded:
+def load(path: str) -> Encoded | WideEncoded:
+    """Load either container version (dense Encoded or WideEncoded)."""
     with open(path, "rb") as f:
-        return loads(f.read())
+        blob = f.read()
+    return (loads_wide(blob) if container_version(blob) == WIDE_VERSION
+            else loads(blob))

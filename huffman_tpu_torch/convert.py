@@ -1,11 +1,12 @@
 """State carried between the two packages, as numpy fields.
 
 A Huffman codec has no weights: its state is the codebook and the encoded
-stream.  These functions build the port's Codebook and Encoded from the
-JAX package's fields (codes, lengths, max_len; stream words, total_bits,
-block_bits, n_bytes, block_bytes, max_code_len) and give the same fields
-back, so that either package can take over the other's state without
-importing it.  The .htz v1 bytes are the other shared form.
+stream.  These functions build the port's Codebook, Encoded and
+WideEncoded from the JAX package's fields (codes, lengths, max_len; stream
+words, total_bits, block_bits, n_bytes, block_bytes, max_code_len; payload
+words, tile_words, bases) and give the same fields back, so that either
+package can take over the other's state without importing it.  The .htz
+v1 and v3 bytes are the other shared form.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import numpy as np
 from .api import Encoded
 from .codebook import Codebook, canonical_codes
 from .config import CodecConfig, cdiv
+from .golden.wide_codec import ROUNDS
+from .wide import WideEncoded
 
 
 def codebook_from_fields(codes, lengths, max_len: int) -> Codebook:
@@ -59,3 +62,25 @@ def encoded_fields(enc: Encoded) -> dict:
             "block_bits": enc.block_bits.copy(), "n_bytes": enc.n_bytes,
             "block_bytes": enc.config.block_bytes,
             "max_code_len": enc.config.max_code_len}
+
+
+def wide_encoded_from_fields(payload_words, tile_words, bases, n_bytes: int,
+                             max_code_len: int,
+                             codebook: Codebook) -> WideEncoded:
+    """A port WideEncoded from a JAX WideEncoded's fields."""
+    words = np.asarray(payload_words, dtype=np.uint32)
+    tw = np.asarray(tile_words, dtype=np.int32)
+    bases = np.asarray(bases, dtype=np.int32)
+    if bases.shape != (tw.size, ROUNDS):
+        raise ValueError(f"bases shape {bases.shape} != ({tw.size}, {ROUNDS})")
+    if words.size != 2 * int(tw.astype(np.int64).sum()):
+        raise ValueError("payload_words size != 2 * sum(tile_words)")
+    return WideEncoded(payload_words=words, tile_words=tw, bases=bases,
+                       codebook=codebook, n_bytes=int(n_bytes),
+                       config=CodecConfig(max_code_len=int(max_code_len)))
+
+
+def wide_encoded_fields(enc: WideEncoded) -> dict:
+    return {"payload_words": enc.payload_words.copy(),
+            "tile_words": enc.tile_words.copy(), "bases": enc.bases.copy(),
+            "n_bytes": enc.n_bytes, "max_code_len": enc.config.max_code_len}

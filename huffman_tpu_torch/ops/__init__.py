@@ -1,8 +1,9 @@
 """Device stages of the codec.
 
-ops/{encode,pack,decode}.py hold the plain PyTorch version of each kernel;
-ops/cuda/ holds the wrappers that launch the hand-written CUDA kernels
-(csrc/) on CUDA tensors and take the plain version only for CPU tensors.
+ops/{encode,pack,decode,wide}.py hold the plain PyTorch version of each
+kernel; ops/cuda/ holds the wrappers that launch the hand-written CUDA
+kernels (csrc/) on CUDA tensors and take the plain version only for CPU
+tensors.
 """
 
 

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of csrc/ at first use.
 
-nvcc compiles every csrc/*.cu for sm_90a into one shared library with a
-plain C interface, in huffman_tpu_torch/build/ (listed in .gitignore), and
-ctypes loads it.  Nothing is built when a module is imported: the first
+nvcc compiles every csrc/*.cu for sm_90a, one process per source and all
+at once, and links the objects into one shared library with a plain C
+interface, in huffman_tpu_torch/build/ (listed in .gitignore); ctypes
+loads it.  Nothing is built when a module is imported: the first
 kernel launch builds, or `build()` does so explicitly.  Each C entry
 returns cudaGetLastError() after its launch and `check` raises on it.
 """
@@ -23,7 +24,7 @@ CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "build")
 LIB = os.path.join(BUILD_DIR, "libhuffman_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -36,6 +37,10 @@ _SIGNATURES = {
     "huff_pack_blocks": [_p, _p, _p, _p, _p, _ll, _i, _ll, _i, _i, _p],
     "huff_decode_blocks": [_p, _ll, _p, _p, _p, _p, _i, _p, _ll, _i, _i, _i,
                            _i, _p],
+    "huff_wide_sub_encode": [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _p],
+    "huff_wide_schedule": [_p, _p, _p, _p, _i, _i, _p],
+    "huff_wide_emit": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _p, _p],
+    "huff_wide_decode": [_p, _ll, _p, _p, _p, _p, _p, _i, _p, _i, _p],
 }
 
 
@@ -61,16 +66,34 @@ def _stale() -> bool:
 
 
 def build() -> str:
-    """Compile csrc/*.cu into LIB.  Returns nvcc's output, which holds the
-    `-Xptxas -v` register, shared-memory and spill lines of every kernel."""
+    """Compile csrc/*.cu into LIB, the sources in parallel.  Returns nvcc's
+    output, which holds the `-Xptxas -v` register, shared-memory and spill
+    lines of every kernel."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
-    os.replace(tmp, LIB)
-    return r.stdout + r.stderr
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for p, log in zip(procs, logs):
+            if p.returncode:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{log}")
+        tmp = f"{LIB}.{tag}"
+        r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stdout}{r.stderr}")
+        os.replace(tmp, LIB)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(logs) + r.stdout + r.stderr
 
 
 def load_library() -> ctypes.CDLL:

@@ -40,6 +40,15 @@ def encode_blocks(byte_blocks: torch.Tensor, codes: torch.Tensor,
     """
     if byte_blocks.is_cuda:
         cuda_calls.n += 1
+    return encode_rows(byte_blocks, codes, lengths, valid_bytes,
+                       capacity_words)
+
+
+def encode_rows(byte_blocks: torch.Tensor, codes: torch.Tensor,
+                lengths: torch.Tensor, valid_bytes: torch.Tensor,
+                capacity_words: int):
+    """encode_blocks without its count: the body that the plain substream
+    encoder (ops/wide.py) shares."""
     nb, bb = byte_blocks.shape
     cap = capacity_words
     sym = byte_blocks.to(torch.int64)

@@ -1,0 +1,192 @@
+"""Wide (interleaved) format on one device (counterpart of huffman_tpu/wide.py).
+
+Format spec: golden/wide_codec.py; in-memory form of container v3.
+
+encode_wide: bytes to the device as (NS, 256) substream rows -> histogram
+(device) + codebook (host) -> K5 substream encode -> one host sync for
+the miss flags -> schedule kernel (bases, tile_words) -> int64 cumsum of
+2 * tile_words, the tiles' payload offsets -> one host sync for the
+payload length -> K7 emit straight into the payload -> payload, tile_words
+and bases to the host.
+decode_wide / decode_wide_range: host offsets from tile_words -> the
+covering tiles' payload span to the device -> K8 over those tiles -> bytes.
+
+Every function takes `device`: on a CUDA device the stages launch the
+port's kernels; with device="cpu" the wrappers run their plain PyTorch
+versions (ops/wide.py).
+
+Against the JAX package: the port writes the spec's tile count,
+max(1, cdiv(n, TILE_BYTES)); the JAX package rounds it up to a power of
+two (a compile-cache device) and writes empty tiles, whose containers the
+port reads all the same.  Left out, all Mosaic machinery: the narrow
+speculative substream trees with their flags, patch overlay and
+_spec_policy; the per-tile host assembly of scratch planes; and the
+row-group alignment of the decode plan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import api
+from .codebook import Codebook
+from .config import DEFAULT_CONFIG, CodecConfig, cdiv
+from .golden.wide_codec import MAXLEN, N_SUB, ROUNDS, SUB_BYTES, TILE_BYTES
+from .ops.cuda import wide_decode as k_decode
+from .ops.cuda import wide_emit as k_emit
+from .ops.cuda import wide_encode as k_sub
+from .ops.decode import table_entries
+
+
+@dataclasses.dataclass(frozen=True)
+class WideEncoded:
+    """A wide-format encoded stream (in-memory form of container v3)."""
+    payload_words: np.ndarray     # uint32: per tile, P0 then P1
+    tile_words: np.ndarray        # (NT,) int32 plane words per tile
+    bases: np.ndarray             # (NT, ROUNDS) int32 per-round pull bases
+    codebook: Codebook
+    n_bytes: int
+    config: CodecConfig
+
+    @property
+    def ratio(self) -> float:
+        return (self.payload_words.size * 4) / max(self.n_bytes, 1)
+
+
+def num_tiles(n_bytes: int) -> int:
+    return max(1, cdiv(n_bytes, TILE_BYTES))
+
+
+def tile_bytes(n_bytes: int, t0: int, t1: int) -> np.ndarray:
+    """(t1 - t0,) int32 real bytes of tiles [t0, t1)."""
+    starts = np.arange(t0, t1, dtype=np.int64) * TILE_BYTES
+    return np.clip(n_bytes - starts, 0, TILE_BYTES).astype(np.int32)
+
+
+def reader_mcl(cb: Codebook) -> int:
+    """The max code length that enters the pull rule: the codebook's
+    actual longest code (not cfg.max_code_len), at least 1."""
+    return int(cb.lengths.max(initial=1)) or 1
+
+
+def slot_words(mcl: int) -> int:
+    """K5's words per substream: 256 codes of at most mcl bits fill 8 * mcl
+    words, and the emit may read the two after them."""
+    return 8 * mcl + 2
+
+
+def device_substreams(arr: np.ndarray, device: torch.device):
+    """(NS, SUB_BYTES) uint8 substream rows on `device`, zero past the input
+    (NS = N_SUB * num_tiles(n)), and the (NS,) int32 valid byte counts."""
+    n = arr.size
+    ns = num_tiles(n) * N_SUB
+    rows = torch.empty(ns * SUB_BYTES, dtype=torch.uint8, device=device)
+    rows[:n].copy_(api._from_numpy(arr, torch.device("cpu")))
+    rows[n:].zero_()
+    valid = api._from_numpy(api.valid_per_block(n, ns, SUB_BYTES), device)
+    return rows.view(ns, SUB_BYTES), valid
+
+
+def payload_offsets(tile_words: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Each tile's first payload word (int64 exclusive cumsum of its two
+    planes) and the payload length, which is a host sync."""
+    sizes = 2 * tile_words.to(torch.int64)
+    ends = torch.cumsum(sizes, 0)
+    return ends - sizes, int(ends[-1])
+
+
+def encode_substreams(rows: torch.Tensor, valid: torch.Tensor,
+                      cb: Codebook, n_bytes: int):
+    """K5 -> schedule -> offsets -> K7 on device-resident rows.  Returns
+    (payload (NW,) int32, tile_words (NT,) int32, bases (NT, ROUNDS) int32),
+    all on the rows' device."""
+    device = rows.device
+    mcl = reader_mcl(cb)
+    codes = api._from_numpy(np.ascontiguousarray(cb.codes, np.uint32)
+                            .view(np.int32), device)
+    lengths = api._from_numpy(np.ascontiguousarray(cb.lengths, np.int32),
+                              device)
+    streams, bits, l2 = k_sub.sub_encode(rows, codes, lengths, valid,
+                                         slot_words(mcl))
+    if bool((bits < 0).any()):            # MISS_FLAG is the sign bit
+        raise ValueError("input contains symbols absent from the codebook")
+    nt = rows.shape[0] // N_SUB
+    tb = api._from_numpy(tile_bytes(n_bytes, 0, nt), device)
+    bases, tile_words = k_emit.schedule_counts(l2, tb, mcl)
+    offsets, n_words = payload_offsets(tile_words)
+    payload = k_emit.emit_planes(streams, l2, tb, bases, tile_words, offsets,
+                                 mcl, n_words)
+    return payload, tile_words, bases
+
+
+def encode_wide(data, cfg: CodecConfig = DEFAULT_CONFIG,
+                codebook: Codebook | None = None,
+                device="cuda") -> WideEncoded:
+    """Encode into the wide format on `device`.  Without `codebook`, builds
+    the exact per-stream codebook (device histogram, cfg.narrow_tol cap
+    policy); an explicit codebook that lacks a code for some input byte
+    raises ValueError, as do codes longer than 12 bits."""
+    arr = api._as_u8(data)
+    n = arr.size
+    if cfg.max_code_len > MAXLEN:
+        raise ValueError("wide format requires max_code_len <= 12")
+    rows, valid = device_substreams(arr, torch.device(device))
+    cb = (codebook if codebook is not None
+          else api._codebook_for(rows, n, cfg))
+    if cb.max_len > MAXLEN:
+        raise ValueError(f"codebook has {cb.max_len}-bit codes; the wide "
+                         f"format takes at most {MAXLEN}")
+    payload, tile_words, bases = encode_substreams(rows, valid, cb, n)
+    return WideEncoded(payload.cpu().numpy().view(np.uint32),
+                       tile_words.cpu().numpy(), bases.cpu().numpy(), cb, n,
+                       cfg)
+
+
+def _decode_tiles(enc: WideEncoded, t0: int, t1: int,
+                  device) -> torch.Tensor:
+    """K8 over tiles [t0, t1) of a wide stream: only their payload span
+    goes to `device`.  Returns (t1 - t0, TILE_BYTES) uint8 on `device`."""
+    device = torch.device(device)
+    tw = np.asarray(enc.tile_words, np.int64)
+    tile_start = np.concatenate([[0], np.cumsum(2 * tw)])
+    w0, w1 = int(tile_start[t0]), int(tile_start[t1])
+    span = np.ascontiguousarray(enc.payload_words[w0:w1], np.uint32)
+    mcl = reader_mcl(enc.codebook)
+    return k_decode.decode_tiles(
+        api._from_numpy(span.view(np.int32), device),
+        api._from_numpy(tile_start[t0:t1] - w0, device),
+        api._from_numpy(tw[t0:t1].astype(np.int32), device),
+        api._from_numpy(np.ascontiguousarray(enc.bases[t0:t1], np.int32),
+                        device),
+        api._from_numpy(tile_bytes(enc.n_bytes, t0, t1), device),
+        api._from_numpy(table_entries(enc.codebook, mcl), device), mcl)
+
+
+def decode_wide(enc: WideEncoded, device="cuda") -> np.ndarray:
+    """Decode every tile on `device`.  Returns the uint8 bytes."""
+    if enc.n_bytes == 0:
+        return np.zeros(0, np.uint8)
+    out = _decode_tiles(enc, 0, len(enc.tile_words), device)
+    return out.reshape(-1)[: enc.n_bytes].cpu().numpy()
+
+
+def decode_wide_range(enc: WideEncoded, start: int, stop: int,
+                      device="cuda") -> np.ndarray:
+    """Decode bytes [start, stop) by decoding only the tiles that cover
+    them: tiles are independent, since each carries its plane length and
+    pull bases in the container."""
+    if not 0 <= start <= stop <= enc.n_bytes:
+        raise ValueError(f"range [{start}, {stop}) outside "
+                         f"[0, {enc.n_bytes})")
+    if start == stop:
+        return np.zeros(0, np.uint8)
+    t0, t1 = start // TILE_BYTES, cdiv(stop, TILE_BYTES)
+    out = _decode_tiles(enc, t0, t1, device).reshape(-1)
+    return out[start - t0 * TILE_BYTES: stop - t0 * TILE_BYTES].cpu().numpy()
+
+
+__all__ = ["WideEncoded", "encode_wide", "decode_wide", "decode_wide_range",
+           "TILE_BYTES", "ROUNDS"]

@@ -21,7 +21,7 @@ from huffman_tpu.codebook import Codebook as RefCodebook
 from huffman_tpu.config import CodecConfig as RefConfig
 from huffman_tpu.golden.numpy_codec import packed_bytes_to_words
 
-from huffman_tpu_torch import api, cli, container, convert
+from huffman_tpu_torch import api, cli, container, convert, wide
 from huffman_tpu_torch.codebook import Codebook
 from huffman_tpu_torch.config import CodecConfig
 from huffman_tpu_torch.utils import testdata
@@ -105,10 +105,14 @@ def test_container_files_and_errors(tmp_path):
         container.loads(container.dumps(enc)[:-9])
     with pytest.raises(ValueError, match="not an HTZ"):
         container.loads(b"nope" * 20)
-    wide = bytearray(container.dumps(enc))
-    wide[4] = 3                               # version 3: the wide format
-    with pytest.raises(ValueError, match="wide container not yet ported"):
-        container.loads(bytes(wide))
+    # version 3, the wide format: load() takes either version by its header
+    wide_path = str(tmp_path / "w.htz")
+    container.dump(wide.encode_wide(data, device="cpu"), wide_path)
+    back = container.load(wide_path)
+    assert isinstance(back, wide.WideEncoded)
+    np.testing.assert_array_equal(wide.decode_wide(back, device="cpu"), data)
+    with pytest.raises(ValueError, match="unsupported container version 3"):
+        container.loads(open(wide_path, "rb").read())
 
 
 def test_convert_round_trips():
@@ -223,8 +227,12 @@ def test_cli_roundtrip(tmp_path, capsys):
     assert cli.main(["roundtrip", str(src), "--device", "cpu"]) == 0
     # the JAX package reads the port's file
     np.testing.assert_array_equal(ref_api.decode(ref_container.load(htz)), data)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["encode", str(src), "--format", "wide", "--device", "cpu"])
+    # --format wide writes a v3 container that decode reads back
+    assert cli.main(["encode", str(src), "-o", htz, "--format", "wide",
+                     "--device", "cpu"]) == 0
+    assert container.container_version(open(htz, "rb").read()) == 3
+    assert cli.main(["decode", htz, "-o", out, "--device", "cpu"]) == 0
+    assert open(out, "rb").read() == data.tobytes()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["decode", htz, "--mesh", "2", "--device", "cpu"])
 
@@ -236,6 +244,11 @@ def test_port_imports_neither_jax_nor_reference():
             "huffman_tpu_torch.ops.cuda.encode",
             "huffman_tpu_torch.ops.cuda.pack2",
             "huffman_tpu_torch.ops.cuda.dense_decode",
+            "huffman_tpu_torch.wide", "huffman_tpu_torch.ops.wide",
+            "huffman_tpu_torch.golden.wide_codec",
+            "huffman_tpu_torch.ops.cuda.wide_encode",
+            "huffman_tpu_torch.ops.cuda.wide_emit",
+            "huffman_tpu_torch.ops.cuda.wide_decode",
             "huffman_tpu_torch.utils.testdata"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
