@@ -34,6 +34,21 @@ Phases, each printing one JSON line:
                equal to the specification's encoder; end-to-end and
                kernel-only rates, a per-stage wall breakdown, and bits per
                byte beside the dense stream's.
+  7. sharded - parallel.ShardedCodec over four shards of cuda:0 on the same
+               1 GiB: the dense encode equal to phase 4's stream and
+               container, the wide encode equal to phase 6's container, both
+               decodes equal to the input; launch counts read around that run
+               (every kernel at least once per shard); walls beside the
+               single-device walls of phases 4 and 6, and a per-stage
+               breakdown of the dense encode and decode with each shard's
+               kernel times.  Four shards on one card show what sharding
+               costs, not how it scales.
+  8. multiprocess - two copies of this script (--worker RANK 2 PORT) join one
+               gloo process group with two shards of cuda:0 each, a mesh of
+               four: on 64 MiB of the same profile each checks the dense
+               stream and the wide container against the single-device ones
+               and both roundtrips, and prints an OK line; the run fails if a
+               worker fails, times out or prints none.
 Then the kernels line, the card's nvidia-smi line, and the result line.
 Any mismatch raises and the script exits non-zero, as it does when no
 CUDA device is available.  Imports nothing of JAX.
@@ -42,8 +57,11 @@ CUDA device is available.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,6 +70,11 @@ import torch
 MAIN_BYTES = 1 << 30            # the JAX README's spec size
 KERNEL_BYTES = 64 << 20         # the kernel comparisons' size
 WIDE_GOLDEN_TILES = 16          # leading tiles checked against the spec
+SHARDS = 4                      # shards of cuda:0 in the sharded phase
+MP_BYTES = 64 << 20             # the multiprocess phase's input
+MP_WORKERS = 2                  # processes of the multiprocess phase
+MP_TIMEOUT_S = 300              # each worker's time limit
+MP_OK = "MULTIPROCESS-OK"
 
 
 def emit(obj) -> None:
@@ -354,7 +377,7 @@ def phase_main(card: str, data: np.ndarray) -> dict:
           "encode_kernels_GBps": gb / (enc_ms / 1e3),
           "decode_kernel_GBps": gb / (dec_ms / 1e3),
           "card": card})
-    return launches, enc.total_bits
+    return launches, enc, blob, {"encode": enc_s, "decode": dec_s}
 
 
 class WideStages:
@@ -615,7 +638,6 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
     t0 = time.perf_counter()
     enc2 = container.loads_wide(blob)
     loads_s = time.perf_counter() - t0
-    del blob
     t0 = time.perf_counter()
     back = wide.decode_wide(enc2, device="cuda")
     dec_s = time.perf_counter() - t0
@@ -682,7 +704,273 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
           "encode_kernels_GBps": gb / (enc_ms / 1e3),
           "decode_kernel_GBps": gb / (dec_ms / 1e3), "card": card})
     emit(wide_breakdown(data, card))
+    return launches, blob, {"encode_wide": enc_s, "decode_wide": dec_s}
+
+
+def wall(fn):
+    """fn's result and its host wall in seconds, the device synchronized
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def path_counters() -> tuple[dict, dict]:
+    """Every kernel's launch count, and every plain version's count of calls
+    on CUDA tensors, by name."""
+    from huffman_tpu_torch.ops import decode as p_decode
+    from huffman_tpu_torch.ops import encode as p_encode
+    from huffman_tpu_torch.ops import pack as p_pack
+    from huffman_tpu_torch.ops import wide as p_wide
+    from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
+    from huffman_tpu_torch.ops.cuda import encode as k_encode
+    from huffman_tpu_torch.ops.cuda import pack2 as k_pack
+    from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
+    from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
+    from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
+    kernels = {"encode": k_encode.launches, "pack": k_pack.launches,
+               "dense_decode": k_decode.launches,
+               "wide_sub_encode": k_sub.launches,
+               "wide_schedule": k_emit.schedule_launches,
+               "wide_emit": k_emit.launches, "wide_decode": k_wdec.launches}
+    plain = {"encode": p_encode.cuda_calls, "pack": p_pack.cuda_calls,
+             "dense_decode": p_decode.cuda_calls,
+             **{f"wide_{k}": c for k, c in p_wide.cuda_calls.items()}}
+    return kernels, plain
+
+
+def sharded_breakdown(codec, data: np.ndarray, single, card: str) -> dict:
+    """Host wall of each stage of ShardedCodec.encode and .decode, with a
+    synchronize after each, and each shard's K1, pack and K4 device time
+    from CUDA events."""
+    from huffman_tpu_torch import api
+    from huffman_tpu_torch.config import cdiv
+    from huffman_tpu_torch.ops.cuda import encode as k_encode
+    from huffman_tpu_torch.ops.cuda import pack2 as k_pack
+    from huffman_tpu_torch.ops.encode import BITS_MASK
+    from huffman_tpu_torch.ops.scan import exclusive_bit_offsets
+    from huffman_tpu_torch.parallel.mesh import fetch
+    from huffman_tpu_torch.parallel.pipeline import (assemble_dense,
+                                                     encode_phase1,
+                                                     pack_phase2, shard_bases)
+    ms = {}
+
+    def stage(name, fn):
+        out, sec = wall(fn)
+        ms[name] = sec * 1e3
+        return out
+
+    mesh, cfg = codec.mesh, codec.cfg
+    cap = cfg.capacity_words
+    arr, nb = codec.prepare(data)
+    d_blocks, d_valid = stage("h2d_input",
+                              lambda: codec.shard_inputs(arr, nb))
+    cb = stage("histogram_codebook",
+               lambda: codec._codebook(d_blocks, d_valid))
+    streams, bits = stage("k1_all_shards", lambda: encode_phase1(
+        mesh, d_blocks, d_valid, cb, cap))
+    block_bits = stage("bits_d2h_and_checks", lambda: api.check_block_bits(
+        fetch(mesh, bits)[0], cfg))
+    shard_bits, base = shard_bases(block_bits, mesh)
+    slices, used = stage("pack_all_shards", lambda: pack_phase2(
+        mesh, streams, bits, shard_bits, base))
+    flat, offs = stage("streams_d2h", lambda: fetch(mesh, slices))
+    stream = stage("assemble_dense", lambda: assemble_dense(
+        [flat[offs[s]: offs[s + 1]] for s in range(mesh.size)], base >> 5,
+        used, cdiv(int(shard_bits.sum()), 32)))
+    require(np.array_equal(stream, single.stream_words),
+            "breakdown: sharded stream != single-device stream")
+    del flat, slices, stream
+
+    shard_ms = {"k1": [], "pack": [], "dense_decode": []}
+    codes, lengths = api.codebook_tensors(cb, mesh.devices[0])
+    for s in range(mesh.size):
+        shard_ms["k1"].append(cuda_ms(lambda: k_encode.encode_blocks(
+            d_blocks[s], codes, lengths, d_valid[s], cap), 3))
+        b = bits[s] & BITS_MASK
+        offs = exclusive_bit_offsets(b, int(base[s] & 31))
+        shard_ms["pack"].append(cuda_ms(lambda: k_pack.pack_blocks(
+            streams[s], b, offs.word_base, offs.bit_shift, int(used[s])), 3))
+    del d_blocks, d_valid, streams, bits
+
+    nb = len(single.block_bits)
+    k = -(-nb // mesh.size)
+    require(nb == k * mesh.size, f"{nb} blocks do not split evenly")
+    outs = stage("decode_all_shards", lambda: [
+        api.decode_block_span(single, s * k, (s + 1) * k, mesh.devices[s])
+        .reshape(-1) for s in range(mesh.size)])
+    back = stage("output_d2h", lambda: fetch(mesh, outs)[0][: data.size])
+    require(np.array_equal(back, data), "breakdown: decoded bytes != input")
+    del outs, back
+    # K4 alone per shard: the span and offsets of decode_block_span made
+    # once, outside the timing
+    from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
+    from huffman_tpu_torch.ops.decode import table_entries
+    bb = cfg.block_bytes
+    ends = np.cumsum(np.asarray(single.block_bits, np.int64))
+    starts = ends - single.block_bits
+    valid_all = api.valid_per_block(single.n_bytes, len(ends), bb)
+    tb = max(single.codebook.max_len, 1)
+    table = torch.from_numpy(table_entries(single.codebook, tb)).cuda()
+    for s in range(mesh.size):
+        b0, b1 = s * k, (s + 1) * k
+        w0 = int(starts[b0] >> 5)
+        span = torch.from_numpy(np.ascontiguousarray(
+            single.stream_words[w0: -(-int(ends[b1 - 1]) // 32)])
+            .view(np.int32)).cuda()
+        wb = torch.from_numpy((starts[b0:b1] >> 5) - w0).cuda()
+        sh = torch.from_numpy((starts[b0:b1] & 31).astype(np.int32)).cuda()
+        va = torch.from_numpy(valid_all[b0:b1]).cuda()
+        shard_ms["dense_decode"].append(cuda_ms(lambda: k_decode.decode_blocks(
+            span, wb, sh, va, table, tb, bb), 3))
+    return {"phase": "sharded_breakdown", "bytes": int(data.size),
+            "shards": mesh.size, "ms": ms, "shard_kernel_ms": shard_ms,
+            "card": card}
+
+
+def phase_sharded(card: str, data: np.ndarray, single, dense_blob: bytes,
+                  wide_blob: bytes, single_walls: dict) -> dict:
+    from huffman_tpu_torch import container
+    from huffman_tpu_torch.parallel.mesh import make_mesh
+    from huffman_tpu_torch.parallel.pipeline import ShardedCodec
+
+    codec = ShardedCodec(make_mesh(devices=["cuda:0"] * SHARDS))
+    kernels, plain = path_counters()
+    walls = {}
+
+    # --- the sharded path, with every count at 0 just before it ---
+    for c in (*kernels.values(), *plain.values()):
+        c.n = 0
+    enc, walls["encode"] = wall(lambda: codec.encode(data))
+    blob = container.dumps(enc)
+    enc2 = container.loads(blob)
+    back, walls["decode"] = wall(lambda: codec.decode(enc2))
+    wenc, walls["encode_wide"] = wall(lambda: codec.encode_wide(data))
+    wblob = container.dumps_wide(wenc)
+    wenc2 = container.loads_wide(wblob)
+    wback, walls["decode_wide"] = wall(lambda: codec.decode_wide(wenc2))
+    launches = {k: c.n for k, c in kernels.items()}
+    plain_calls = {k: c.n for k, c in plain.items()}
+    # --- end of the sharded path ---
+
+    require(all(v >= SHARDS for v in launches.values()),
+            f"a kernel ran on fewer than {SHARDS} shards: {launches}")
+    require(not any(plain_calls.values()),
+            f"a plain version ran on CUDA tensors: {plain_calls}")
+    require(enc.total_bits == single.total_bits,
+            f"sharded total_bits {enc.total_bits} != {single.total_bits}")
+    require(np.array_equal(enc.stream_words, single.stream_words),
+            "sharded stream words != single-device stream")
+    require(blob == dense_blob, "sharded container != single-device container")
+    require(np.array_equal(back, data), "sharded decode != input")
+    require(wblob == wide_blob,
+            "sharded wide container != single-device wide container")
+    require(np.array_equal(wback, data), "sharded wide decode != input")
+    del enc2, back, wenc, wenc2, wback, blob, wblob
+    emit({"phase": "sharded", "bytes": int(data.size), "shards": SHARDS,
+          "devices": [str(d) for d in codec.mesh.devices],
+          "stream_equal_single": True, "container_equal_single": True,
+          "wide_container_equal_single": True, "roundtrips_exact": True,
+          "launches": launches, "plain_calls_on_cuda": plain_calls,
+          "wall_s": walls, "single_device_wall_s": single_walls,
+          "GBps": {k: data.size / 1e9 / v for k, v in walls.items()},
+          "card": card})
+    emit(sharded_breakdown(codec, data, enc, card))
     return launches
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_multiprocess(card: str) -> None:
+    """Start MP_WORKERS copies of this script as one process group and
+    require an OK line from each."""
+    port = free_port()
+    t0 = time.perf_counter()
+    logs = [tempfile.TemporaryFile("w+") for _ in range(MP_WORKERS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", str(rank),
+         str(MP_WORKERS), str(port)], stdout=log, stderr=subprocess.STDOUT,
+        text=True) for rank, log in enumerate(logs)]
+    try:
+        # a worker that fails leaves the other waiting in a collective:
+        # stop both at the first failure, or at the time limit
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() for p in procs)
+                    or time.perf_counter() - t0 > MP_TIMEOUT_S):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    records = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0,
+                f"worker {rank} exited {p.returncode}:\n{out[-4000:]}")
+        ok = [ln for ln in out.splitlines() if ln.startswith(MP_OK)]
+        require(ok, f"worker {rank} printed no OK line:\n{out[-4000:]}")
+        records.append(json.loads(ok[-1][len(MP_OK):]))
+    emit({"phase": "multiprocess", "workers": records,
+          "seconds": time.perf_counter() - t0, "card": card})
+
+
+def worker(rank: int, world: int, port: int) -> int:
+    """One process of the multiprocess phase: two shards of cuda:0 in a
+    mesh of 2 * world over gloo."""
+    from huffman_tpu_torch import api, container, wide
+    from huffman_tpu_torch.parallel.mesh import init_multihost, make_mesh
+    from huffman_tpu_torch.parallel.pipeline import ShardedCodec
+    from huffman_tpu_torch.utils import testdata
+
+    init_multihost(f"localhost:{port}", world, rank)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    require(mesh.size == 2 * world and
+            mesh.local_shards == [2 * rank, 2 * rank + 1], f"mesh {mesh}")
+    data = testdata.entropy_stream(MP_BYTES, seed=0)
+    codec = ShardedCodec(mesh)
+    kernels, plain = path_counters()
+    for c in (*kernels.values(), *plain.values()):
+        c.n = 0
+    enc, enc_s = wall(lambda: codec.encode(data))
+    back, dec_s = wall(lambda: codec.decode(enc))
+    wenc, wenc_s = wall(lambda: codec.encode_wide(data))
+    wback, wdec_s = wall(lambda: codec.decode_wide(wenc))
+    launches = {k: c.n for k, c in kernels.items()}
+    require(all(v >= 2 for v in launches.values()),
+            f"a kernel ran on fewer than 2 shards: {launches}")
+    require(not any(c.n for c in plain.values()),
+            "a plain version ran on CUDA tensors")
+    single = api.encode(data, device="cuda")
+    require(enc.total_bits == single.total_bits and
+            np.array_equal(enc.stream_words, single.stream_words),
+            "sharded stream != single-device stream")
+    require(container.dumps(enc) == container.dumps(single),
+            "sharded container != single-device container")
+    require(np.array_equal(back, data), "sharded decode != input")
+    require(container.dumps_wide(wenc) == container.dumps_wide(
+        wide.encode_wide(data, device="cuda")),
+        "sharded wide container != single-device wide container")
+    require(np.array_equal(wback, data), "sharded wide decode != input")
+    torch.distributed.destroy_process_group()
+    print(MP_OK + json.dumps({
+        "rank": rank, "world": world, "shards": mesh.size,
+        "local_shards": mesh.local_shards, "bytes": int(data.size),
+        "launches": launches, "wall_s": {
+            "encode": enc_s, "decode": dec_s, "encode_wide": wenc_s,
+            "decode_wide": wdec_s}}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -721,8 +1009,15 @@ def main() -> int:
     data = testdata.entropy_stream(MAIN_BYTES, seed=0)
     emit({"phase": "datagen", "bytes": MAIN_BYTES,
           "seconds": time.perf_counter() - t0})
-    launches, dense_bits = phase_main(card, data)
-    launches.update(phase_wide_main(card, data, dense_bits))
+    launches, single, dense_blob, walls = phase_main(card, data)
+    wide_launches, wide_blob, wide_walls = phase_wide_main(
+        card, data, single.total_bits)
+    launches.update(wide_launches)
+    walls.update(wide_walls)
+    phase_sharded(card, data, single, dense_blob, wide_blob, walls)
+    del data, single, dense_blob, wide_blob
+    torch.cuda.empty_cache()
+    phase_multiprocess(card)
 
     # wide_emit's launches count its emit kernel; the schedule kernel, its
     # first pass, is checked in the wide_main record
@@ -743,4 +1038,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--worker":
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        sys.exit(worker(*map(int, sys.argv[2:])))
     sys.exit(main())

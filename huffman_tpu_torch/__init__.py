@@ -1,13 +1,14 @@
 """huffman_tpu_torch — the PyTorch/CUDA port of huffman_tpu.
 
 A second package beside the JAX one, with the same module names: the
-host codebook (codebook.py), the device stages (ops/: histogram, scan and
-the plain PyTorch version of each kernel), the hand-written CUDA kernels
-(csrc/, wrapped in ops/cuda/) for block encode, dense pack, dense decode,
-substream encode, wide emit and wide decode, the dense API (api.py), the
-wide format (wide.py), the .htz v1 and v3 containers (container.py), the
+host codebook (codebook.py) and its models (models/), the device stages
+(ops/: histogram, scan and the plain PyTorch version of each kernel), the
+hand-written CUDA kernels (csrc/, wrapped in ops/cuda/) for block encode,
+dense pack, dense decode, substream encode, wide emit and wide decode, the
+dense API (api.py), the wide format (wide.py), the sharded codec over a
+device mesh (parallel/), the .htz v1 and v3 containers (container.py), the
 golden checks (golden/, verify.py), state conversion from the JAX package
-(convert.py) and the CLI.  It imports torch and numpy, never jax and never
+(convert.py), timing, stats and device probes (utils/) and the CLI.  It imports torch and numpy, never jax and never
 the huffman_tpu package.
 """
 

@@ -85,6 +85,13 @@ def package_merge_lengths(freqs: np.ndarray, max_len: int) -> np.ndarray:
     return lengths
 
 
+def kraft_sum(lengths: np.ndarray) -> float:
+    """Sum of 2**-L over the present symbols: at most 1 for a prefix code."""
+    nz = np.asarray(lengths)
+    nz = nz[nz > 0].astype(np.float64)
+    return float(np.sum(2.0 ** (-nz)))
+
+
 def canonical_codes(lengths: np.ndarray) -> np.ndarray:
     """Canonical right-aligned code values: symbols ordered by (length,
     value), codes counting up and left-shifted when the length grows."""
@@ -153,6 +160,12 @@ class Codebook:
     @staticmethod
     def from_data(data, max_code_len: int = 16) -> "Codebook":
         return Codebook.from_frequencies(byte_histogram_host(data), max_code_len)
+
+    def validate(self) -> None:
+        """Raise ValueError unless the lengths form a prefix code."""
+        ks = kraft_sum(self.lengths)
+        if ks > 1.0 + 1e-12:
+            raise ValueError(f"invalid codebook: Kraft sum {ks} > 1")
 
     def expected_bits_per_byte(self, freqs: np.ndarray) -> float:
         freqs = np.asarray(freqs, dtype=np.float64)

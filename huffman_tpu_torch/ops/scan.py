@@ -15,19 +15,23 @@ import torch
 class BitOffsets(NamedTuple):
     """word_base[i] (int64): the word where block i's bits begin;
     bit_shift[i] (int32): its first bit within that word (0..31, from the
-    MSB); total_bits, total_words: 0-d int64 tensors."""
+    MSB); total_bits (the end bit of the last block), total_words: 0-d
+    int64 tensors."""
     word_base: torch.Tensor
     bit_shift: torch.Tensor
     total_bits: torch.Tensor
     total_words: torch.Tensor
 
 
-def exclusive_bit_offsets(block_bits: torch.Tensor) -> BitOffsets:
+def exclusive_bit_offsets(block_bits: torch.Tensor,
+                          start_bit: int = 0) -> BitOffsets:
+    """Offsets of blocks laid end to end from bit `start_bit` on (a shard
+    of the sharded codec starts at its global bit phase, 0..31)."""
     bits = block_bits.to(torch.int64)
-    ends = torch.cumsum(bits, 0)
+    ends = torch.cumsum(bits, 0) + start_bit
     starts = ends - bits
-    total = ends[-1] if bits.numel() else torch.zeros((), dtype=torch.int64,
-                                                      device=bits.device)
+    total = ends[-1] if bits.numel() else torch.full(
+        (), start_bit, dtype=torch.int64, device=bits.device)
     return BitOffsets(word_base=starts >> 5,
                       bit_shift=(starts & 31).to(torch.int32),
                       total_bits=total, total_words=(total + 31) >> 5)

@@ -81,13 +81,8 @@ def slot_words(mcl: int) -> int:
 def device_substreams(arr: np.ndarray, device: torch.device):
     """(NS, SUB_BYTES) uint8 substream rows on `device`, zero past the input
     (NS = N_SUB * num_tiles(n)), and the (NS,) int32 valid byte counts."""
-    n = arr.size
-    ns = num_tiles(n) * N_SUB
-    rows = torch.empty(ns * SUB_BYTES, dtype=torch.uint8, device=device)
-    rows[:n].copy_(api._from_numpy(arr, torch.device("cpu")))
-    rows[n:].zero_()
-    valid = api._from_numpy(api.valid_per_block(n, ns, SUB_BYTES), device)
-    return rows.view(ns, SUB_BYTES), valid
+    return api.device_rows(arr, num_tiles(arr.size) * N_SUB, SUB_BYTES,
+                           device)
 
 
 def payload_offsets(tile_words: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -105,10 +100,7 @@ def encode_substreams(rows: torch.Tensor, valid: torch.Tensor,
     all on the rows' device."""
     device = rows.device
     mcl = reader_mcl(cb)
-    codes = api._from_numpy(np.ascontiguousarray(cb.codes, np.uint32)
-                            .view(np.int32), device)
-    lengths = api._from_numpy(np.ascontiguousarray(cb.lengths, np.int32),
-                              device)
+    codes, lengths = api.codebook_tensors(cb, device)
     streams, bits, l2 = k_sub.sub_encode(rows, codes, lengths, valid,
                                          slot_words(mcl))
     if bool((bits < 0).any()):            # MISS_FLAG is the sign bit

@@ -233,8 +233,10 @@ def test_cli_roundtrip(tmp_path, capsys):
     assert container.container_version(open(htz, "rb").read()) == 3
     assert cli.main(["decode", htz, "-o", out, "--device", "cpu"]) == 0
     assert open(out, "rb").read() == data.tobytes()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["decode", htz, "--mesh", "2", "--device", "cpu"])
+    # --mesh routes through the sharded codec
+    assert cli.main(["decode", htz, "-o", out, "--mesh", "2",
+                     "--device", "cpu"]) == 0
+    assert open(out, "rb").read() == data.tobytes()
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -249,7 +251,16 @@ def test_port_imports_neither_jax_nor_reference():
             "huffman_tpu_torch.ops.cuda.wide_encode",
             "huffman_tpu_torch.ops.cuda.wide_emit",
             "huffman_tpu_torch.ops.cuda.wide_decode",
-            "huffman_tpu_torch.utils.testdata"]
+            "huffman_tpu_torch.utils.testdata",
+            "huffman_tpu_torch.parallel.mesh",
+            "huffman_tpu_torch.parallel.pipeline",
+            "huffman_tpu_torch.models", "huffman_tpu_torch.models.base",
+            "huffman_tpu_torch.models.fixed",
+            "huffman_tpu_torch.models.huffman",
+            "huffman_tpu_torch.utils.device",
+            "huffman_tpu_torch.utils.timing",
+            "huffman_tpu_torch.utils.stats",
+            "huffman_tpu_torch.utils.printers"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'huffman_tpu'))\n"
