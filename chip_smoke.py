@@ -13,12 +13,15 @@ Phases, each printing one JSON line:
                event times of both; then a uniform 256-symbol input (every
                block exactly at capacity), a 14-bit codebook, a 20-bit one
                (decode table in device memory), pack alone on blocks that
-               spill into their neighbours, and small edge cases.
+               spill into their neighbours, small edge cases, and K4 over
+               a span of blocks (api.decode_block_span) that starts at a
+               nonzero bit shift and ends at the stream's last word.
   4. main    - the dense path at 1 GiB, 32 symbols at H = 2.2066: api.encode
                bit-exact against the C++ golden encoder, container dumps ->
                loads -> api.decode equal to the input, decode_range over a
                span that crosses blocks; launch counts read around that run;
-               end-to-end and kernel-only rates.
+               end-to-end and kernel-only rates; K4's 1 GiB time beside
+               its bound.
   5. wide_kernels - each wide kernel (K5 substream encode, the schedule and
                K7 emit, K8 decode) against its plain version, exactly: at
                64 MiB (256 tiles) of the main profile with CUDA event times;
@@ -32,8 +35,9 @@ Phases, each printing one JSON line:
                to the input, decode_wide_range across tiles; launch counts
                read around that run; the first 16 tiles and the last one
                equal to the specification's encoder; end-to-end and
-               kernel-only rates, a per-stage wall breakdown, and bits per
-               byte beside the dense stream's.
+               kernel-only rates, K8's 1 GiB time beside its bound, a
+               per-stage wall breakdown, and bits per byte beside the dense
+               stream's.
   7. sharded - parallel.ShardedCodec over four shards of cuda:0 on the same
                1 GiB: the dense encode equal to phase 4's stream and
                container, the wide encode equal to phase 6's container, both
@@ -49,7 +53,11 @@ Phases, each printing one JSON line:
                stream and the wide container against the single-device ones
                and both roundtrips, and prints an OK line; the run fails if a
                worker fails, times out or prints none.
-Then the kernels line, the card's nvidia-smi line, and the result line.
+Then the kernels line (each kernel's launches on the main paths, its
+error against its plain version, its time, the plain version's, and its
+bound: the larger of the bytes it must move at 3.35 TB/s and its
+operations at 67 T/s, all at the 64 MiB kernel shapes), the card's
+nvidia-smi line, and the result line.
 Any mismatch raises and the script exits non-zero, as it does when no
 CUDA device is available.  Imports nothing of JAX.
 """
@@ -75,6 +83,9 @@ MP_BYTES = 64 << 20             # the multiprocess phase's input
 MP_WORKERS = 2                  # processes of the multiprocess phase
 MP_TIMEOUT_S = 300              # each worker's time limit
 MP_OK = "MULTIPROCESS-OK"
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA's data sheet
+OPS_PER_S = 67e12               # its non-tensor float32 rate, the peak of
+                                # the scalar units that do the bit work
 
 
 def emit(obj) -> None:
@@ -106,6 +117,52 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def bound(work: tuple) -> tuple:
+    """(bound_ms, bound_by) of a kernel's (bytes, operations): the least
+    time the card could take, the larger of the bytes over HBM_BYTES_PER_S
+    and the operations over OPS_PER_S."""
+    nbytes, nops = work
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dense_work(nb: int, bb: int, cap: int, bits: torch.Tensor,
+               n_words: int, table_bits: int) -> dict:
+    """(bytes, operations) each dense kernel must do: K1 reads the blocks,
+    valid counts and codebook and writes its capacity rows and bit counts,
+    a lookup and a placement per byte; pack reads the rows' used words,
+    bit counts and offsets and writes the stream, a shift and a merge per
+    word; K4 reads the stream, offsets, valid counts and table and writes
+    the blocks, a lookup and a shift per byte."""
+    used = int(((bits.to(torch.int64) + 31) >> 5).sum())
+    return {"encode": (nb * bb + 4 * nb + 2048 + nb * cap * 4 + 4 * nb,
+                       2 * nb * bb),
+            "pack": (4 * used + 16 * nb + 4 * n_words, 2 * used),
+            "dense_decode": (4 * n_words + 16 * nb + 2 * (1 << table_bits)
+                             + nb * bb, 2 * nb * bb)}
+
+
+def wide_work(nt: int, slot: int, n_words: int, mcl: int) -> dict:
+    """(bytes, operations) each wide kernel must do: K5 reads the
+    substreams, valid counts and codebook and writes slot rows, bit counts
+    and l2, a lookup and a placement per byte; the schedule reads l2 and
+    writes the bases and plane lengths, a pull test and a count per
+    substream and round; K7 (timed with the schedule) also reads the
+    pulled words and writes the payload, a move per word; K8 reads the
+    payload, tile tables and decode table and writes the tiles, a lookup
+    and a shift per byte."""
+    ns = nt * 1024
+    sched = (ns * 64 + 4 * nt + nt * (256 + 4), 2 * ns * 64)
+    return {"wide_sub_encode": (ns * 256 + 4 * ns + 2048 + ns * slot * 4
+                                + 4 * ns + ns * 64, 2 * ns * 256),
+            "wide_schedule": sched,
+            "wide_emit": (sched[0] + 8 * n_words + 8 * nt,
+                          sched[1] + n_words),
+            "wide_decode": (4 * n_words + nt * (8 + 4 + 256 + 4)
+                            + 2 * (1 << mcl) + nt * 256 * 1024,
+                            2 * nt * 256 * 1024)}
 
 
 def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> int:
@@ -201,10 +258,14 @@ def compare_kernels(name: str, data: np.ndarray, cfg, card: str, errs: dict,
                 cuda_ms(lambda: st.decode(k_decode, w_k, offs), reps),
                 cuda_ms(lambda: st.decode(p_decode, w_k, offs), plain_reps)),
         }
-        rec["ms"] = {k: {"kernel": v[0], "plain": v[1]} for k, v in t.items()}
+        work = dense_work(rec["blocks"], cfg.block_bytes,
+                          cfg.capacity_words, bits, n_words, st.tb)
+        rec["ms"] = {k: {"kernel": v[0], "plain": v[1], "bytes": work[k][0],
+                         "operations": work[k][1], "bound": bound(work[k])}
+                     for k, v in t.items()}
         rec["card"] = card
         if times is not None:
-            times.update(t)
+            times.update({k: (*v, work[k]) for k, v in t.items()})
     return rec
 
 
@@ -251,6 +312,37 @@ def edge_data():
     return data, cb
 
 
+def compare_span(card: str, errs: dict) -> dict:
+    """K4 through api.decode_block_span over blocks [b0, nb): the span
+    starts at a block with a nonzero bit shift and ends at the stream's
+    last word, against the plain version on the same span (on the host)
+    and against the input."""
+    from huffman_tpu_torch import api
+    from huffman_tpu_torch.config import cdiv
+    from huffman_tpu_torch.utils import testdata
+
+    data = testdata.entropy_stream((4 << 20) - 333, seed=8)
+    enc = api.encode(data, device="cuda")
+    ends = np.cumsum(enc.block_bits.astype(np.int64))
+    starts = ends - enc.block_bits
+    nb, bb = len(ends), enc.config.block_bytes
+    b0 = next(b for b in range(nb // 3, nb) if starts[b] & 31)
+    require(cdiv(int(ends[-1]), 32) == enc.stream_words.size,
+            "span: the last block does not end in the stream's last word")
+    o_k = api.decode_block_span(enc, b0, nb, "cuda")
+    o_p = api.decode_block_span(enc, b0, nb, "cpu")
+    e = max_abs_err(o_k.cpu(), o_p)
+    require(e == 0, f"dense_span: decode kernel != plain (max err {e})")
+    require(np.array_equal(o_k.reshape(-1)[: data.size - b0 * bb].cpu()
+                           .numpy(), data[b0 * bb:]),
+            "dense_span: decoded bytes != input")
+    errs["dense_decode"] = max(errs.get("dense_decode", 0), e)
+    return {"phase": "kernels", "case": "dense_span_shifted_to_end",
+            "bytes": int(data.size), "blocks": nb - b0, "first_block": b0,
+            "first_bit_shift": int(starts[b0] & 31),
+            "max_abs_err": {"dense_decode": e}, "card": card}
+
+
 def phase_kernels(card: str, errs: dict, times: dict) -> None:
     from huffman_tpu_torch.codebook import Codebook
     from huffman_tpu_torch.config import CodecConfig
@@ -291,6 +383,7 @@ def phase_kernels(card: str, errs: dict, times: dict) -> None:
                          CodecConfig(block_bytes=64, max_code_len=24,
                                      capacity_bits_per_byte=24),
                          card, errs, codebook=cb))
+    emit(compare_span(card, errs))
 
 
 def phase_main(card: str, data: np.ndarray) -> dict:
@@ -357,12 +450,16 @@ def phase_main(card: str, data: np.ndarray) -> dict:
         return st.pack(k_pack, s, b, exclusive_bit_offsets(b), n_words)
 
     w_k = enc_kernels()
-    offs = exclusive_bit_offsets(
-        torch.from_numpy(enc.block_bits).cuda())
+    bits_t = torch.from_numpy(enc.block_bits).cuda()
+    offs = exclusive_bit_offsets(bits_t)
     require(np.array_equal(w_k.cpu().numpy().view(np.uint32),
                            enc.stream_words), "device-resident encode != api")
     enc_ms = cuda_ms(enc_kernels, 5)
     dec_ms = cuda_ms(lambda: st.decode(k_decode, w_k, offs), 5)
+    work = dense_work(len(enc.block_bits), st.cfg.block_bytes,
+                      st.cfg.capacity_words, bits_t, n_words, st.tb)
+    enc_bound = bound(work["encode"])[0] + bound(work["pack"])[0]
+    dec_bound = bound(work["dense_decode"])[0]
     gb = data.size / 1e9
     emit({"phase": "main", "bytes": int(data.size), "blocks": len(enc.block_bits),
           "total_bits": enc.total_bits, "bits_per_byte": enc.total_bits / data.size,
@@ -376,6 +473,10 @@ def phase_main(card: str, data: np.ndarray) -> dict:
           "encode_kernels_ms": enc_ms, "decode_kernel_ms": dec_ms,
           "encode_kernels_GBps": gb / (enc_ms / 1e3),
           "decode_kernel_GBps": gb / (dec_ms / 1e3),
+          "encode_kernels_bound_ms": enc_bound,
+          "decode_kernel_bytes": work["dense_decode"][0],
+          "decode_kernel_bound_ms": dec_bound,
+          "decode_kernel_bound_share": dec_bound / dec_ms,
           "card": card})
     return launches, enc, blob, {"encode": enc_s, "decode": dec_s}
 
@@ -502,11 +603,15 @@ def compare_wide(name: str, data: np.ndarray, card: str, errs: dict,
                 cuda_ms(lambda: st.decode(p_wide, pay_k, offs, tw, bases),
                         plain_reps)),
         }
-        rec["ms"] = {k: {"kernel": v[0], "plain": v[1]} for k, v in t.items()}
-        rec["ms_note"] = "wide_emit is the schedule and the emit kernel"
+        work = wide_work(st.nt, st.slot, n_words, st.mcl)
+        rec["ms"] = {k: {"kernel": v[0], "plain": v[1], "bytes": work[k][0],
+                         "operations": work[k][1], "bound": bound(work[k])}
+                     for k, v in t.items()}
+        rec["ms_note"] = ("wide_emit is the schedule and the emit kernel; "
+                          "its work counts both")
         rec["card"] = card
         if times is not None:
-            times.update(t)
+            times.update({k: (*v, work[k]) for k, v in t.items()})
     return rec
 
 
@@ -686,6 +791,9 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
                            enc.payload_words), "device-resident encode != api")
     enc_ms = cuda_ms(enc_kernels, 5)
     dec_ms = cuda_ms(lambda: st.decode(k_wdec, pay, offs, tw, bases), 5)
+    work = wide_work(nt, st.slot, n_words, st.mcl)
+    enc_bound = bound(work["wide_sub_encode"])[0] + bound(work["wide_emit"])[0]
+    dec_bound = bound(work["wide_decode"])[0]
     del st, pay
     gb = data.size / 1e9
     emit({"phase": "wide_main", "bytes": int(data.size), "tiles": nt,
@@ -702,7 +810,11 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
           "encode_e2e_GBps": gb / enc_s, "decode_e2e_GBps": gb / dec_s,
           "encode_kernels_ms": enc_ms, "decode_kernel_ms": dec_ms,
           "encode_kernels_GBps": gb / (enc_ms / 1e3),
-          "decode_kernel_GBps": gb / (dec_ms / 1e3), "card": card})
+          "decode_kernel_GBps": gb / (dec_ms / 1e3),
+          "encode_kernels_bound_ms": enc_bound,
+          "decode_kernel_bytes": work["wide_decode"][0],
+          "decode_kernel_bound_ms": dec_bound,
+          "decode_kernel_bound_share": dec_bound / dec_ms, "card": card})
     emit(wide_breakdown(data, card))
     return launches, blob, {"encode_wide": enc_s, "decode_wide": dec_s}
 
@@ -1024,11 +1136,16 @@ def main() -> int:
     mods = {"encode": k_encode, "pack": k_pack, "dense_decode": k_decode,
             "wide_sub_encode": k_sub, "wide_emit": k_emit,
             "wide_decode": k_wdec}
+    # times at the kernel cases' main-path shapes (64 MiB); no PyTorch call
+    # computes a Huffman encode, pack or decode, so library_ms is null
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": m.SOURCE,
          "replaces": m.REPLACES, "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bytes": times[name][2][0],
+         "operations": times[name][2][1],
+         "bound_ms": bound(times[name][2])[0],
+         "bound_by": bound(times[name][2])[1], "library_ms": None}
         for name, m in mods.items()]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -32,6 +32,59 @@ __device__ __forceinline__ void put_bits(uint32_t* buf, uint32_t cap,
   if (c && w + 2 < cap) atomicOr(&buf[w + 2], c);
 }
 
+// Asynchronous 16-byte copy from device to shared memory (cp.async, which
+// bypasses the registers): `src_bytes` (0..16) bytes are read from src and
+// the rest of the 16 are zero-filled.  Both addresses are 16-byte aligned;
+// with src_bytes 0 nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy words [w, w + 4) of src (n_words long) into dst with cp_async16;
+// words at or past n_words arrive as zeros.
+__device__ __forceinline__ void cp_async_words4(uint32_t* dst,
+                                                const uint32_t* src,
+                                                long long n_words,
+                                                long long w) {
+  const long long left = n_words - w;
+  const int bytes = left >= 4 ? 16 : left > 0 ? (int)left * 4 : 0;
+  cp_async16(dst, bytes ? src + w : src, bytes);
+}
+
+// CTAs for a grid-stride launch of `kernel` with `threads` and `smem`
+// bytes of dynamic shared memory: as many as fit on every SM at once, and
+// no more than the `items` CTA-sized pieces of work.
+template <typename K>
+int resident_grid(K kernel, int threads, size_t smem, long long items) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  return (int)(items < fit ? (items > 0 ? items : 1) : fit);
+}
+
+// buf <<= s for 0 <= s <= 31, as two funnel shifts (no branch on s >= 32).
+__device__ __forceinline__ uint64_t shl64(uint64_t buf, int s) {
+  const uint32_t hi = (uint32_t)(buf >> 32), lo = (uint32_t)buf;
+  return ((uint64_t)__funnelshift_l(lo, hi, s) << 32) | (lo << s);
+}
+
 // Inclusive sum over the lanes of a full warp.
 __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t x) {
   const int lane = threadIdx.x & 31;

@@ -1,9 +1,8 @@
-"""Golden CPU encoder: the JAX package's C++ oracle, loaded with ctypes.
+"""Golden CPU encoder: the C++ oracle, loaded with ctypes.
 
-There is one oracle, not a copy: this loader compiles the same source,
-huffman_tpu/golden/cpu_codec.cpp (read by path, never imported), with g++
-into the port's own build directory, huffman_tpu_torch/build/.  It writes
-nothing inside huffman_tpu/.
+cpu_codec.cpp beside this file is the port's own copy of the JAX
+package's golden codec; g++ builds it at first use into the port's build
+directory, huffman_tpu_torch/build/.
 """
 
 from __future__ import annotations
@@ -19,8 +18,7 @@ from ..codebook import Codebook
 from . import numpy_codec
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG), "huffman_tpu", "golden",
-                      "cpu_codec.cpp")
+SOURCE = os.path.join(_PKG, "golden", "cpu_codec.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 _LIB = os.path.join(BUILD_DIR, "libhuffgolden.so")
 _lock = threading.Lock()

@@ -35,8 +35,7 @@ _ll = ctypes.c_longlong
 _SIGNATURES = {
     "huff_encode_blocks": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _p],
     "huff_pack_blocks": [_p, _p, _p, _p, _p, _ll, _i, _ll, _i, _i, _p],
-    "huff_decode_blocks": [_p, _ll, _p, _p, _p, _p, _i, _p, _ll, _i, _i, _i,
-                           _i, _p],
+    "huff_decode_blocks": [_p, _ll, _p, _p, _p, _p, _i, _p, _ll, _i, _p],
     "huff_wide_sub_encode": [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _p],
     "huff_wide_schedule": [_p, _p, _p, _p, _i, _i, _p],
     "huff_wide_emit": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _p, _p],

@@ -12,9 +12,7 @@ SOURCE = "huffman_tpu_torch/csrc/dense_decode.cu"
 REPLACES = "huffman_tpu/ops/pallas/dense_decode.py:378"
 launches = Counter()
 
-THREADS = 128                       # one data block per thread
 MAX_TABLE_BITS = 24                 # the longest code the encoder takes
-SMEM_TABLE_BITS = 14                # tables up to 32 KB sit in shared memory
 
 
 def decode_blocks(stream: torch.Tensor, word_base: torch.Tensor,
@@ -39,17 +37,17 @@ def decode_blocks(stream: torch.Tensor, word_base: torch.Tensor,
     _build.require(bit_shift, "bit_shift", torch.int32, (nb,), dev)
     _build.require(valid_bytes, "valid_bytes", torch.int32, (nb,), dev)
     _build.require(table, "table", torch.int16, (1 << table_bits,), dev)
+    if stream.data_ptr() % 16:
+        raise ValueError("decode kernel needs a 16-byte aligned stream")
     out = torch.empty((nb, block_bytes), dtype=torch.uint8, device=dev)
     if nb == 0:
         return out
     lib = _build.load_library()
-    grid = _build.launch_geometry(dev, nb, THREADS, 2048 // THREADS)
     with torch.cuda.device(dev):          # the launch uses the current device
         err = lib.huff_decode_blocks(
             stream.data_ptr(), stream.shape[0], word_base.data_ptr(),
             bit_shift.data_ptr(), valid_bytes.data_ptr(), table.data_ptr(),
             table_bits, out.data_ptr(), nb, block_bytes,
-            int(table_bits <= SMEM_TABLE_BITS), grid, THREADS,
             _build.stream_ptr(dev))
     _build.check(err, "dense_decode")
     launches.n += 1

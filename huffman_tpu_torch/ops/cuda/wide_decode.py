@@ -37,6 +37,8 @@ def decode_tiles(payload: torch.Tensor, offsets: torch.Tensor,
     _build.require(bases, "bases", torch.int32, (nt, plain.ROUNDS), dev)
     _build.require(tile_bytes, "tile_bytes", torch.int32, (nt,), dev)
     _build.require(table, "table", torch.int16, (1 << mcl,), dev)
+    if payload.data_ptr() % 16:
+        raise ValueError("decode_tiles kernel needs a 16-byte aligned payload")
     # every byte is written: zero past each substream's valid bytes
     out = torch.empty((nt, plain.N_SUB * plain.SUB_BYTES), dtype=torch.uint8,
                       device=dev)

@@ -239,29 +239,33 @@ def test_cli_roundtrip(tmp_path, capsys):
     assert open(out, "rb").read() == data.tobytes()
 
 
+# every module of the port that a user or chip_smoke.py imports
+PORT_MODULES = [
+    "huffman_tpu_torch", "huffman_tpu_torch.api",
+    "huffman_tpu_torch.container", "huffman_tpu_torch.cli",
+    "huffman_tpu_torch.convert", "huffman_tpu_torch.verify",
+    "huffman_tpu_torch.ops.cuda.encode",
+    "huffman_tpu_torch.ops.cuda.pack2",
+    "huffman_tpu_torch.ops.cuda.dense_decode",
+    "huffman_tpu_torch.wide", "huffman_tpu_torch.ops.wide",
+    "huffman_tpu_torch.golden", "huffman_tpu_torch.golden.wide_codec",
+    "huffman_tpu_torch.ops.cuda.wide_encode",
+    "huffman_tpu_torch.ops.cuda.wide_emit",
+    "huffman_tpu_torch.ops.cuda.wide_decode",
+    "huffman_tpu_torch.utils.testdata",
+    "huffman_tpu_torch.parallel.mesh",
+    "huffman_tpu_torch.parallel.pipeline",
+    "huffman_tpu_torch.models", "huffman_tpu_torch.models.base",
+    "huffman_tpu_torch.models.fixed",
+    "huffman_tpu_torch.models.huffman",
+    "huffman_tpu_torch.utils.device",
+    "huffman_tpu_torch.utils.timing",
+    "huffman_tpu_torch.utils.stats",
+    "huffman_tpu_torch.utils.printers"]
+
+
 def test_port_imports_neither_jax_nor_reference():
-    mods = ["huffman_tpu_torch", "huffman_tpu_torch.api",
-            "huffman_tpu_torch.container", "huffman_tpu_torch.cli",
-            "huffman_tpu_torch.convert", "huffman_tpu_torch.verify",
-            "huffman_tpu_torch.ops.cuda.encode",
-            "huffman_tpu_torch.ops.cuda.pack2",
-            "huffman_tpu_torch.ops.cuda.dense_decode",
-            "huffman_tpu_torch.wide", "huffman_tpu_torch.ops.wide",
-            "huffman_tpu_torch.golden.wide_codec",
-            "huffman_tpu_torch.ops.cuda.wide_encode",
-            "huffman_tpu_torch.ops.cuda.wide_emit",
-            "huffman_tpu_torch.ops.cuda.wide_decode",
-            "huffman_tpu_torch.utils.testdata",
-            "huffman_tpu_torch.parallel.mesh",
-            "huffman_tpu_torch.parallel.pipeline",
-            "huffman_tpu_torch.models", "huffman_tpu_torch.models.base",
-            "huffman_tpu_torch.models.fixed",
-            "huffman_tpu_torch.models.huffman",
-            "huffman_tpu_torch.utils.device",
-            "huffman_tpu_torch.utils.timing",
-            "huffman_tpu_torch.utils.stats",
-            "huffman_tpu_torch.utils.printers"]
-    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in PORT_MODULES)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'huffman_tpu'))\n"
             + "assert not bad, bad\nprint('clean')\n")
