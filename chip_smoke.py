@@ -13,31 +13,33 @@ Phases, each printing one JSON line:
                event times of both; then a uniform 256-symbol input (every
                block exactly at capacity), a 14-bit codebook, a 20-bit one
                (decode table in device memory), pack alone on blocks that
-               spill into their neighbours, small edge cases, and K4 over
+               spill into their neighbours, small edge cases (64-byte
+               blocks, and 4096-byte ones: K1's two routes), and K4 over
                a span of blocks (api.decode_block_span) that starts at a
                nonzero bit shift and ends at the stream's last word.
   4. main    - the dense path at 1 GiB, 32 symbols at H = 2.2066: api.encode
                bit-exact against the C++ golden encoder, container dumps ->
                loads -> api.decode equal to the input, decode_range over a
                span that crosses blocks; launch counts read around that run;
-               end-to-end and kernel-only rates; K4's 1 GiB time beside
-               its bound.
+               end-to-end and kernel-only rates; K1's and K4's 1 GiB times
+               beside their bounds.
   5. wide_kernels - each wide kernel (K5 substream encode, the schedule and
                K7 emit, K8 decode) against its plain version, exactly: at
                64 MiB (256 tiles) of the main profile with CUDA event times;
                uniform 256 symbols (8-bit codes); a 12-bit codebook whose
                longest codes fill substreams (96 words, the reader's buffer
-               at 111 bits); a narrow book (mcl <= 4); partial, sub-tile and
-               non-power-of-two tile counts.  Small cases also against the
-               format's specification, tile by tile.
+               at 111 bits); a narrow book (mcl <= 4); K5 alone on 1021
+               rows; partial, sub-tile and non-power-of-two tile counts.
+               Small cases also against the format's specification, tile
+               by tile.
   6. wide_main - the wide path on the same 1 GiB: wide.encode_wide ->
                container dumps_wide -> loads_wide -> wide.decode_wide equal
                to the input, decode_wide_range across tiles; launch counts
                read around that run; the first 16 tiles and the last one
                equal to the specification's encoder; end-to-end and
-               kernel-only rates, K8's 1 GiB time beside its bound, a
-               per-stage wall breakdown, and bits per byte beside the dense
-               stream's.
+               kernel-only rates, K5's and K8's 1 GiB times beside their
+               bounds, a per-stage wall breakdown, and bits per byte beside
+               the dense stream's.
   7. sharded - parallel.ShardedCodec over four shards of cuda:0 on the same
                1 GiB: the dense encode equal to phase 4's stream and
                container, the wide encode equal to phase 6's container, both
@@ -295,16 +297,16 @@ def compare_pack_full(card: str, errs: dict) -> dict:
             "max_abs_err": {"pack": e}, "card": card}
 
 
-def edge_data():
-    """Small explicit-codebook cases: 64-byte blocks (a partial warp of 16
-    threads), a final partial block, a 4-byte group that is exactly 32
-    bits, and groups of four 24-bit codes (96 bits per thread)."""
+def edge_data(n: int = 64 * 300 + 37):
+    """Small explicit-codebook cases: with 64-byte blocks, a partial warp of
+    16 lanes; a final partial block, a 4-byte group that is exactly 32
+    bits, and groups of four 24-bit codes (96 bits per item)."""
     from huffman_tpu_torch.codebook import Codebook
     lens = np.zeros(256, np.int32)
     lens[:25] = list(range(1, 25)) + [24]          # Kraft sum exactly 1
     cb = Codebook.from_lengths(lens)
     rng = np.random.default_rng(7)
-    data = np.zeros(64 * 300 + 37, np.uint8)
+    data = np.zeros(n, np.uint8)
     data[rng.integers(0, data.size, 2000)] = rng.integers(1, 25, 2000)
     data[64:68] = 7                                 # four 8-bit codes
     data[128:132] = 24                              # four 24-bit codes
@@ -383,6 +385,12 @@ def phase_kernels(card: str, errs: dict, times: dict) -> None:
                          CodecConfig(block_bytes=64, max_code_len=24,
                                      capacity_bits_per_byte=24),
                          card, errs, codebook=cb))
+    # blocks past the warp route (1 KiB, 1024 words): K1's CTA per block
+    data, cb = edge_data(4096 * 40 + 37)
+    emit(compare_kernels("edges_bb4096_24bit", data,
+                         CodecConfig(block_bytes=4096, max_code_len=24,
+                                     capacity_bits_per_byte=24),
+                         card, errs, codebook=cb))
     emit(compare_span(card, errs))
 
 
@@ -455,10 +463,12 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     require(np.array_equal(w_k.cpu().numpy().view(np.uint32),
                            enc.stream_words), "device-resident encode != api")
     enc_ms = cuda_ms(enc_kernels, 5)
+    k1_ms = cuda_ms(lambda: st.encode(k_encode), 5)
     dec_ms = cuda_ms(lambda: st.decode(k_decode, w_k, offs), 5)
     work = dense_work(len(enc.block_bits), st.cfg.block_bytes,
                       st.cfg.capacity_words, bits_t, n_words, st.tb)
-    enc_bound = bound(work["encode"])[0] + bound(work["pack"])[0]
+    k1_bound = bound(work["encode"])[0]
+    enc_bound = k1_bound + bound(work["pack"])[0]
     dec_bound = bound(work["dense_decode"])[0]
     gb = data.size / 1e9
     emit({"phase": "main", "bytes": int(data.size), "blocks": len(enc.block_bits),
@@ -474,6 +484,10 @@ def phase_main(card: str, data: np.ndarray) -> dict:
           "encode_kernels_GBps": gb / (enc_ms / 1e3),
           "decode_kernel_GBps": gb / (dec_ms / 1e3),
           "encode_kernels_bound_ms": enc_bound,
+          "encode_kernel_ms": k1_ms,
+          "encode_kernel_bytes": work["encode"][0],
+          "encode_kernel_bound_ms": k1_bound,
+          "encode_kernel_bound_share": k1_bound / k1_ms,
           "decode_kernel_bytes": work["dense_decode"][0],
           "decode_kernel_bound_ms": dec_bound,
           "decode_kernel_bound_share": dec_bound / dec_ms,
@@ -615,6 +629,26 @@ def compare_wide(name: str, data: np.ndarray, card: str, errs: dict,
     return rec
 
 
+def compare_sub_encode_rows(card: str, errs: dict) -> dict:
+    """K5 alone on a row count that is not a multiple of its four rows a
+    warp (the wide path always passes whole tiles of 1024), the last row
+    partial, against its plain version."""
+    from huffman_tpu_torch.ops import wide as p_wide
+    from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
+    from huffman_tpu_torch.utils import testdata
+
+    ns = 1021
+    st = WideStages(testdata.entropy_stream(256 * ns - 100, seed=9))
+    rows, valid = st.rows[:ns], st.valid[:ns]
+    outs = [mod.sub_encode(rows, st.codes, st.lengths, valid, st.slot)
+            for mod in (k_sub, p_wide)]
+    e = max(max_abs_err(k, p) for k, p in zip(*outs))
+    require(e == 0, f"sub_encode_1021_rows: K5 kernel != plain (max err {e})")
+    errs["wide_sub_encode"] = max(errs.get("wide_sub_encode", 0), e)
+    return {"phase": "wide_kernels", "case": "sub_encode_1021_rows",
+            "rows": ns, "max_abs_err": {"wide_sub_encode": e}, "card": card}
+
+
 def phase_wide_kernels(card: str, errs: dict, times: dict) -> None:
     from huffman_tpu_torch.codebook import Codebook
     from huffman_tpu_torch.golden.wide_codec import TILE_BYTES
@@ -651,6 +685,8 @@ def phase_wide_kernels(card: str, errs: dict, times: dict) -> None:
                        codebook=Codebook.from_lengths(lens), spec_tiles=1)
     require(rec["mcl"] == 4, "narrow book is not mcl 4")
     emit(rec)
+
+    emit(compare_sub_encode_rows(card, errs))
 
     # partial last tile with 3 (no power of two) tiles; one sub-tile input
     edge = testdata.skewed(3 * TILE_BYTES - 5000, num_symbols=40, seed=5)
@@ -790,9 +826,11 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
     require(np.array_equal(pay.cpu().numpy().view(np.uint32),
                            enc.payload_words), "device-resident encode != api")
     enc_ms = cuda_ms(enc_kernels, 5)
+    k5_ms = cuda_ms(lambda: st.sub_encode(k_sub), 5)
     dec_ms = cuda_ms(lambda: st.decode(k_wdec, pay, offs, tw, bases), 5)
     work = wide_work(nt, st.slot, n_words, st.mcl)
-    enc_bound = bound(work["wide_sub_encode"])[0] + bound(work["wide_emit"])[0]
+    k5_bound = bound(work["wide_sub_encode"])[0]
+    enc_bound = k5_bound + bound(work["wide_emit"])[0]
     dec_bound = bound(work["wide_decode"])[0]
     del st, pay
     gb = data.size / 1e9
@@ -812,6 +850,10 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
           "encode_kernels_GBps": gb / (enc_ms / 1e3),
           "decode_kernel_GBps": gb / (dec_ms / 1e3),
           "encode_kernels_bound_ms": enc_bound,
+          "sub_encode_kernel_ms": k5_ms,
+          "sub_encode_kernel_bytes": work["wide_sub_encode"][0],
+          "sub_encode_kernel_bound_ms": k5_bound,
+          "sub_encode_kernel_bound_share": k5_bound / k5_ms,
           "decode_kernel_bytes": work["wide_decode"][0],
           "decode_kernel_bound_ms": dec_bound,
           "decode_kernel_bound_share": dec_bound / dec_ms, "card": card})

@@ -12,8 +12,8 @@ SOURCE = "huffman_tpu_torch/csrc/encode.cu"
 REPLACES = "huffman_tpu/ops/pallas/encode.py:716"
 launches = Counter()
 
-MAX_BLOCK_BYTES = 4096              # one thread per 4 bytes, 1024 threads
-MAX_CAPACITY_WORDS = 200 * 1024 // 4    # the block's words in shared memory
+MAX_BLOCK_BYTES = 4096              # encode_rows_cta: 1024 threads
+MAX_CAPACITY_WORDS = 200 * 1024 // 4    # its block's words in shared memory
 
 
 def encode_blocks(byte_blocks: torch.Tensor, codes: torch.Tensor,
@@ -44,12 +44,11 @@ def encode_blocks(byte_blocks: torch.Tensor, codes: torch.Tensor,
     if nb == 0:
         return streams, bits
     lib = _build.load_library()
-    grid = _build.launch_geometry(dev, nb, 1, 8)
     with torch.cuda.device(dev):          # the launch uses the current device
         err = lib.huff_encode_blocks(
             byte_blocks.data_ptr(), codes.data_ptr(), lengths.data_ptr(),
             valid_bytes.data_ptr(), streams.data_ptr(), bits.data_ptr(), nb,
-            bb // 4, cap, grid, _build.stream_ptr(dev))
+            bb, cap, _build.stream_ptr(dev))
     _build.check(err, "encode")
     launches.n += 1
     return streams, bits

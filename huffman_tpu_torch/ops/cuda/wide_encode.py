@@ -40,14 +40,14 @@ def sub_encode(substreams: torch.Tensor, codes: torch.Tensor,
     l2 = torch.empty((ns, plain.ITEMS), dtype=torch.uint8, device=dev)
     if ns == 0:
         return streams, bits, l2
+    if substreams.data_ptr() % 16:
+        raise ValueError("sub_encode kernel needs 16-byte aligned substreams")
     lib = _build.load_library()
-    # two warps a CTA: 32 CTAs fill an SM's 64 warp slots
-    grid = _build.launch_geometry(dev, ns, 1, 32)
     with torch.cuda.device(dev):          # the launch uses the current device
         err = lib.huff_wide_sub_encode(
             substreams.data_ptr(), codes.data_ptr(), lengths.data_ptr(),
             valid.data_ptr(), streams.data_ptr(), bits.data_ptr(),
-            l2.data_ptr(), ns, slot, grid, _build.stream_ptr(dev))
+            l2.data_ptr(), ns, slot, _build.stream_ptr(dev))
     _build.check(err, "wide_sub_encode")
     launches.n += 1
     return streams, bits, l2

@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 DIR is a checkout of this repository (default: the repository itself),
 so the same script ablates an older commit's kernels from a `git archive`
-of it.  For each variant below it copies DIR/huffman_tpu_torch into a
+of it, from the one whose port holds its own golden codec (PR 4) on.  For each variant below it copies DIR/huffman_tpu_torch into a
 temporary directory, rewrites the kernel sources there by exact text
 substitution (a variant whose text is not found in that tree's kernel is
 reported as not applicable), builds that copy in a child process, and
@@ -133,12 +133,6 @@ def patch_tree(tree: str, dst: str, variant: str) -> dict:
     shutil.copytree(os.path.join(tree, "huffman_tpu_torch"),
                     os.path.join(dst, "huffman_tpu_torch"),
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
-    # the port of PR 1-3 read the JAX package's golden files by path
-    golden = os.path.join(tree, "huffman_tpu", "golden")
-    if not os.path.exists(os.path.join(dst, "huffman_tpu_torch", "golden",
-                                       "cpu_codec.cpp")):
-        shutil.copytree(golden, os.path.join(dst, "huffman_tpu", "golden"),
-                        ignore=shutil.ignore_patterns("*.so", "__pycache__"))
     applied = {}
     for src, alternatives in VARIANTS[variant].items():
         path = os.path.join(dst, "huffman_tpu_torch", "csrc", src)

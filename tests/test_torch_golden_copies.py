@@ -9,7 +9,9 @@ copy of huffman_tpu_torch/ by itself, with nothing of the repository
 beside it, imports every module and runs both oracles.
 """
 
+import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -147,3 +149,28 @@ def test_port_stands_alone(tmp_path):
     assert r.stdout.strip() == "alone"
     assert (tmp_path / "huffman_tpu_torch" / "build" /
             "libhuffgolden.so").exists()
+
+
+def test_scripts_read_nothing_of_the_jax_package():
+    """chip_smoke.py and the scripts under scripts/ run on the card machine,
+    which has no JAX: none imports jax or huffman_tpu, or names the JAX
+    package's directory as a path to read."""
+    files = [os.path.join(ROOT, "chip_smoke.py")] + sorted(
+        os.path.join(ROOT, "scripts", f)
+        for f in os.listdir(os.path.join(ROOT, "scripts"))
+        if f.endswith(".py"))
+    for path in files:
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                names = []
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib",
+                                                  "huffman_tpu"), (path, name)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                assert not re.fullmatch(r"huffman_tpu(/.*)?", node.value), (
+                    path, node.value)
