@@ -17,6 +17,14 @@ Phases, each printing one JSON line:
                blocks, and 4096-byte ones: K1's two routes), and K4 over
                a span of blocks (api.decode_block_span) that starts at a
                nonzero bit shift and ends at the stream's last word.
+               Blocks past 4 KiB: 8192 bytes (the CLI's --block-bytes
+               8192) with 24-bit codes, and 262,144 bytes, whose 65,536
+               words of capacity K1 cannot stage in shared memory; each
+               through K1, pack and K4 against their plain versions (K4's
+               at 262,144 bytes against the input alone: its plain version
+               loops once a byte of the block), then api.encode equal to
+               the golden encoder, api.decode and decode_range equal to
+               the input.
   4. main    - the dense path at 1 GiB, 32 symbols at H = 2.2066: api.encode
                bit-exact against the C++ golden encoder, container dumps ->
                loads -> api.decode equal to the input, decode_range over a
@@ -37,9 +45,9 @@ Phases, each printing one JSON line:
                to the input, decode_wide_range across tiles; launch counts
                read around that run; the first 16 tiles and the last one
                equal to the specification's encoder; end-to-end and
-               kernel-only rates, K5's and K8's 1 GiB times beside their
-               bounds, a per-stage wall breakdown, and bits per byte beside
-               the dense stream's.
+               kernel-only rates, K5's, the schedule with K7's and K8's
+               1 GiB times beside their bounds, a per-stage wall
+               breakdown, and bits per byte beside the dense stream's.
   7. sharded - parallel.ShardedCodec over four shards of cuda:0 on the same
                1 GiB: the dense encode equal to phase 4's stream and
                container, the wide encode equal to phase 6's container, both
@@ -56,10 +64,11 @@ Phases, each printing one JSON line:
                and both roundtrips, and prints an OK line; the run fails if a
                worker fails, times out or prints none.
 Then the kernels line (each kernel's launches on the main paths, its
-error against its plain version, its time, the plain version's, and its
-bound: the larger of the bytes it must move at 3.35 TB/s and its
-operations at 67 T/s, all at the 64 MiB kernel shapes), the card's
-nvidia-smi line, and the result line.
+error against its plain version, its time (the device time of launches
+captured in a CUDA graph: graph_ms), the plain version's, and its bound:
+the larger of the bytes it must move at 3.35 TB/s and its operations at
+67 T/s, all at the 64 MiB kernel shapes), the card's nvidia-smi line, and
+the result line.
 Any mismatch raises and the script exits non-zero, as it does when no
 CUDA device is available.  Imports nothing of JAX.
 """
@@ -121,6 +130,29 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn over `reps` calls captured in one CUDA graph,
+    from CUDA events around its replay, after one warm-up call: the
+    kernels' own time, without the wrappers' host overhead, which can take
+    longer than a short kernel (fn must not synchronize)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    del g
+    return a.elapsed_time(b) / reps
+
+
 def bound(work: tuple) -> tuple:
     """(bound_ms, bound_by) of a kernel's (bytes, operations): the least
     time the card could take, the larger of the bytes over HBM_BYTES_PER_S
@@ -150,16 +182,17 @@ def wide_work(nt: int, slot: int, n_words: int, mcl: int) -> dict:
     """(bytes, operations) each wide kernel must do: K5 reads the
     substreams, valid counts and codebook and writes slot rows, bit counts
     and l2, a lookup and a placement per byte; the schedule reads l2 and
-    writes the bases and plane lengths, a pull test and a count per
-    substream and round; K7 (timed with the schedule) also reads the
-    pulled words and writes the payload, a move per word; K8 reads the
-    payload, tile tables and decode table and writes the tiles, a lookup
-    and a shift per byte."""
+    writes the bases, plane lengths and pull masks, a pull test and a count
+    per substream and round; K7, timed with the schedule, also reads the
+    pulled words and writes the payload, a move per word (the pair leaves
+    out the masks, which only pass from one kernel to the other); K8 reads
+    the payload, tile tables and decode table and writes the tiles, a
+    lookup and a shift per byte."""
     ns = nt * 1024
     sched = (ns * 64 + 4 * nt + nt * (256 + 4), 2 * ns * 64)
     return {"wide_sub_encode": (ns * 256 + 4 * ns + 2048 + ns * slot * 4
                                 + 4 * ns + ns * 64, 2 * ns * 256),
-            "wide_schedule": sched,
+            "wide_schedule": (sched[0] + 8 * ns, sched[1]),
             "wide_emit": (sched[0] + 8 * n_words + 8 * nt,
                           sched[1] + n_words),
             "wide_decode": (4 * n_words + nt * (8 + 4 + 256 + 4)
@@ -209,9 +242,12 @@ class Stages:
 
 def compare_kernels(name: str, data: np.ndarray, cfg, card: str, errs: dict,
                     codebook=None, reps: int = 0, plain_reps: int = 0,
-                    times: dict | None = None) -> dict:
+                    times: dict | None = None,
+                    plain_decode: bool = True) -> dict:
     """Each kernel against its plain version on the same device inputs;
-    every output must match exactly.  Returns the case's JSON record."""
+    every output must match exactly, and the decoded bytes the input.
+    Without plain_decode, K4 is held to the input alone.  Returns the
+    case's JSON record."""
     from huffman_tpu_torch.ops import decode as p_decode
     from huffman_tpu_torch.ops import encode as p_encode
     from huffman_tpu_torch.ops import pack as p_pack
@@ -238,8 +274,8 @@ def compare_kernels(name: str, data: np.ndarray, cfg, card: str, errs: dict,
     e_pack = max_abs_err(w_k, w_p)
     require(e_pack == 0, f"{name}: pack kernel != plain (max err {e_pack})")
     o_k = st.decode(k_decode, w_k, offs)
-    o_p = st.decode(p_decode, w_k, offs)
-    e_dec = max_abs_err(o_k, o_p)
+    e_dec = (max_abs_err(o_k, st.decode(p_decode, w_k, offs)) if plain_decode
+             else 0)
     require(e_dec == 0, f"{name}: decode kernel != plain (max err {e_dec})")
     back = o_k.reshape(-1)[: data.size].cpu().numpy()
     require(np.array_equal(back, data), f"{name}: decoded bytes != input")
@@ -247,17 +283,18 @@ def compare_kernels(name: str, data: np.ndarray, cfg, card: str, errs: dict,
         errs[k] = max(errs.get(k, 0), e)
     rec["total_bits"] = int(offs.total_bits)
     rec["max_abs_err"] = {"encode": e_enc, "pack": e_pack,
-                          "dense_decode": e_dec}
+                          "dense_decode": e_dec if plain_decode else None}
     if reps:
         t = {
-            "encode": (cuda_ms(lambda: st.encode(k_encode), reps),
+            "encode": (graph_ms(lambda: st.encode(k_encode), reps),
                        cuda_ms(lambda: st.encode(p_encode), plain_reps)),
             "pack": (
-                cuda_ms(lambda: st.pack(k_pack, s_k, bits, offs, n_words), reps),
+                graph_ms(lambda: st.pack(k_pack, s_k, bits, offs, n_words),
+                         reps),
                 cuda_ms(lambda: st.pack(p_pack, s_k, bits, offs, n_words),
                         plain_reps)),
             "dense_decode": (
-                cuda_ms(lambda: st.decode(k_decode, w_k, offs), reps),
+                graph_ms(lambda: st.decode(k_decode, w_k, offs), reps),
                 cuda_ms(lambda: st.decode(p_decode, w_k, offs), plain_reps)),
         }
         work = dense_work(rec["blocks"], cfg.block_bytes,
@@ -345,6 +382,60 @@ def compare_span(card: str, errs: dict) -> dict:
             "max_abs_err": {"dense_decode": e}, "card": card}
 
 
+def api_roundtrip(name: str, data: np.ndarray, cfg, codebook=None) -> dict:
+    """api.encode on the card equal to the golden encoder's stream, and
+    api.decode and decode_range (across three blocks) equal to the input."""
+    from huffman_tpu_torch import api, golden
+    from huffman_tpu_torch.golden.numpy_codec import packed_bytes_to_words
+
+    enc = api.encode(data, cfg, codebook=codebook, device="cuda")
+    ref_bytes, ref_bits = golden.encode(data, enc.codebook)
+    require(enc.total_bits == ref_bits and np.array_equal(
+        enc.stream_words, packed_bytes_to_words(ref_bytes)),
+        f"{name}: api.encode stream != golden encoder")
+    require(np.array_equal(api.decode(enc, device="cuda"), data),
+            f"{name}: api.decode != input")
+    bb = cfg.block_bytes
+    r0, r1 = bb - 100, min(data.size, 3 * bb + 333)
+    require(np.array_equal(api.decode_range(enc, r0, r1, device="cuda"),
+                           data[r0:r1]), f"{name}: decode_range != input")
+    return {"api_golden_bit_exact": True, "api_roundtrip_exact": True,
+            "api_decode_range": [r0, r1]}
+
+
+def compare_large_blocks(card: str, errs: dict) -> None:
+    """K1's CTA route on blocks past 4 KiB, which it walks in chunks of 1024
+    words: through K1, pack and K4 against their plain versions, then
+    through the API against the golden encoder and the input."""
+    from huffman_tpu_torch.config import CodecConfig
+    from huffman_tpu_torch.utils import testdata
+
+    # the CLI's --block-bytes 8192 with 24-bit codes: two chunks a block,
+    # 6144 words of capacity staged in shared memory
+    data, cb = edge_data(8192 * 40 + 37)
+    cfg = CodecConfig(block_bytes=8192, max_code_len=24,
+                      capacity_bits_per_byte=24)
+    rec = compare_kernels("large_bb8192_24bit", data, cfg, card, errs,
+                          codebook=cb)
+    rec.update(api_roundtrip("large_bb8192_24bit", data, cfg, cb))
+    emit(rec)
+    # the default config at 8192 bytes: the main profile's stream, which
+    # does not depend on the block size
+    main = testdata.entropy_stream(8 << 20, seed=11)
+    rec = {"phase": "kernels", "case": "api_bb8192", "bytes": int(main.size),
+           **api_roundtrip("api_bb8192", main, CodecConfig(block_bytes=8192)),
+           "card": card}
+    emit(rec)
+    # 262,144-byte blocks: 65,536 words of capacity, more than a CTA's
+    # shared memory, so K1 ORs each block's codes into device memory
+    big = testdata.entropy_stream(4 * 262144 + 4099, seed=10)
+    cfg = CodecConfig(block_bytes=262144)
+    rec = compare_kernels("large_bb262144", big, cfg, card, errs,
+                          plain_decode=False)
+    rec.update(api_roundtrip("large_bb262144", big, cfg))
+    emit(rec)
+
+
 def phase_kernels(card: str, errs: dict, times: dict) -> None:
     from huffman_tpu_torch.codebook import Codebook
     from huffman_tpu_torch.config import CodecConfig
@@ -392,6 +483,7 @@ def phase_kernels(card: str, errs: dict, times: dict) -> None:
                                      capacity_bits_per_byte=24),
                          card, errs, codebook=cb))
     emit(compare_span(card, errs))
+    compare_large_blocks(card, errs)
 
 
 def phase_main(card: str, data: np.ndarray) -> dict:
@@ -463,8 +555,8 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     require(np.array_equal(w_k.cpu().numpy().view(np.uint32),
                            enc.stream_words), "device-resident encode != api")
     enc_ms = cuda_ms(enc_kernels, 5)
-    k1_ms = cuda_ms(lambda: st.encode(k_encode), 5)
-    dec_ms = cuda_ms(lambda: st.decode(k_decode, w_k, offs), 5)
+    k1_ms = graph_ms(lambda: st.encode(k_encode), 5)
+    dec_ms = graph_ms(lambda: st.decode(k_decode, w_k, offs), 5)
     work = dense_work(len(enc.block_bits), st.cfg.block_bytes,
                       st.cfg.capacity_words, bits_t, n_words, st.tb)
     k1_bound = bound(work["encode"])[0]
@@ -524,9 +616,10 @@ class WideStages:
     def schedule(self, mod, l2):
         return mod.schedule_counts(l2, self.tile_bytes, self.mcl)
 
-    def emit(self, mod, streams, l2, bases, tile_words, offs, n_words: int):
-        return mod.emit_planes(streams, l2, self.tile_bytes, bases, tile_words,
-                               offs, self.mcl, n_words)
+    @staticmethod
+    def emit(mod, streams, masks, bases, tile_words, offs, n_words: int):
+        return mod.emit_planes(streams, masks, bases, tile_words, offs,
+                               n_words)
 
     def decode(self, mod, payload, offs, tile_words, bases):
         return mod.decode_tiles(payload, offs, tile_words, bases,
@@ -566,14 +659,15 @@ def compare_wide(name: str, data: np.ndarray, card: str, errs: dict,
     e_sub = max(max_abs_err(s_k, s_p), max_abs_err(b_k, b_p),
                 max_abs_err(l_k, l_p))
     require(e_sub == 0, f"{name}: K5 kernel != plain (max err {e_sub})")
-    bases, tw = st.schedule(k_emit, l_k)
-    bases_p, tw_p = st.schedule(p_wide, l_k)
-    e_sched = max(max_abs_err(bases, bases_p), max_abs_err(tw, tw_p))
+    bases, tw, masks = st.schedule(k_emit, l_k)
+    bases_p, tw_p, masks_p = st.schedule(p_wide, l_k)
+    e_sched = max(max_abs_err(bases, bases_p), max_abs_err(tw, tw_p),
+                  max_abs_err(masks, masks_p))
     require(e_sched == 0, f"{name}: schedule kernel != plain "
                           f"(max err {e_sched})")
     offs, n_words = wide.payload_offsets(tw)
-    pay_k = st.emit(k_emit, s_k, l_k, bases, tw, offs, n_words)
-    pay_p = st.emit(p_wide, s_k, l_k, bases, tw, offs, n_words)
+    pay_k = st.emit(k_emit, s_k, masks, bases, tw, offs, n_words)
+    pay_p = st.emit(p_wide, s_k, masks, bases, tw, offs, n_words)
     e_emit = max(e_sched, max_abs_err(pay_k, pay_p))
     require(e_emit == 0, f"{name}: K7 kernel != plain (max err {e_emit})")
     o_k = st.decode(k_wdec, pay_k, offs, tw, bases)
@@ -600,20 +694,21 @@ def compare_wide(name: str, data: np.ndarray, card: str, errs: dict,
                                 "wide_emit": e_emit, "wide_decode": e_dec}})
     if reps:
         def emit_all(mod):
-            b, w = st.schedule(mod, l_k)
-            return st.emit(mod, s_k, l_k, b, w, offs, n_words)
+            b, w, msk = st.schedule(mod, l_k)
+            return st.emit(mod, s_k, msk, b, w, offs, n_words)
         t = {
-            "wide_sub_encode": (cuda_ms(lambda: st.sub_encode(k_sub), reps),
+            "wide_sub_encode": (graph_ms(lambda: st.sub_encode(k_sub), reps),
                                 cuda_ms(lambda: st.sub_encode(p_wide),
                                         plain_reps)),
-            "wide_schedule": (cuda_ms(lambda: st.schedule(k_emit, l_k), reps),
+            "wide_schedule": (graph_ms(lambda: st.schedule(k_emit, l_k),
+                                       reps),
                               cuda_ms(lambda: st.schedule(p_wide, l_k),
                                       plain_reps)),
-            "wide_emit": (cuda_ms(lambda: emit_all(k_emit), reps),
+            "wide_emit": (graph_ms(lambda: emit_all(k_emit), reps),
                           cuda_ms(lambda: emit_all(p_wide), plain_reps)),
             "wide_decode": (
-                cuda_ms(lambda: st.decode(k_wdec, pay_k, offs, tw, bases),
-                        reps),
+                graph_ms(lambda: st.decode(k_wdec, pay_k, offs, tw, bases),
+                         reps),
                 cuda_ms(lambda: st.decode(p_wide, pay_k, offs, tw, bases),
                         plain_reps)),
         }
@@ -729,14 +824,15 @@ def wide_breakdown(data: np.ndarray, card: str) -> dict:
     stage("miss_check", lambda: bool((bits < 0).any()))
     nt = rows.shape[0] // 1024
     tb = torch.from_numpy(wide.tile_bytes(n, 0, nt)).cuda()
-    bases, tw = stage("schedule", lambda: k_emit.schedule_counts(l2, tb, mcl))
+    bases, tw, masks = stage("schedule",
+                             lambda: k_emit.schedule_counts(l2, tb, mcl))
     offs, n_words = stage("offsets_and_sync", lambda: wide.payload_offsets(tw))
     payload = stage("k7_emit", lambda: k_emit.emit_planes(
-        streams, l2, tb, bases, tw, offs, mcl, n_words))
+        streams, masks, bases, tw, offs, n_words))
     enc = stage("d2h_payload", lambda: wide.WideEncoded(
         payload.cpu().numpy().view(np.uint32), tw.cpu().numpy(),
         bases.cpu().numpy(), cb, n, CodecConfig()))
-    del rows, valid, streams, bits, l2, payload
+    del rows, valid, streams, bits, l2, masks, payload
     blob = stage("container_dumps", lambda: container.dumps_wide(enc))
     enc = stage("container_loads", lambda: container.loads_wide(blob))
     del blob
@@ -818,21 +914,28 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
 
     def enc_kernels():
         s, _, l2 = st.sub_encode(k_sub)
-        b, w = st.schedule(k_emit, l2)
+        b, w, msk = st.schedule(k_emit, l2)
         offs, nw = wide.payload_offsets(w)
-        return st.emit(k_emit, s, l2, b, w, offs, nw), b, w, offs
+        return st.emit(k_emit, s, msk, b, w, offs, nw), b, w, offs
 
     pay, bases, tw, offs = enc_kernels()
     require(np.array_equal(pay.cpu().numpy().view(np.uint32),
                            enc.payload_words), "device-resident encode != api")
     enc_ms = cuda_ms(enc_kernels, 5)
-    k5_ms = cuda_ms(lambda: st.sub_encode(k_sub), 5)
-    dec_ms = cuda_ms(lambda: st.decode(k_wdec, pay, offs, tw, bases), 5)
+    k5_ms = graph_ms(lambda: st.sub_encode(k_sub), 5)
+    dec_ms = graph_ms(lambda: st.decode(k_wdec, pay, offs, tw, bases), 5)
+    s_k, _, l2_k = st.sub_encode(k_sub)
+
+    def sched_emit():
+        b, w, msk = st.schedule(k_emit, l2_k)
+        return st.emit(k_emit, s_k, msk, b, w, offs, n_words)
+    emit_ms = graph_ms(sched_emit, 5)
     work = wide_work(nt, st.slot, n_words, st.mcl)
     k5_bound = bound(work["wide_sub_encode"])[0]
-    enc_bound = k5_bound + bound(work["wide_emit"])[0]
+    emit_bound = bound(work["wide_emit"])[0]
+    enc_bound = k5_bound + emit_bound
     dec_bound = bound(work["wide_decode"])[0]
-    del st, pay
+    del st, pay, s_k, l2_k
     gb = data.size / 1e9
     emit({"phase": "wide_main", "bytes": int(data.size), "tiles": nt,
           "payload_words": int(n_words),
@@ -854,6 +957,10 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
           "sub_encode_kernel_bytes": work["wide_sub_encode"][0],
           "sub_encode_kernel_bound_ms": k5_bound,
           "sub_encode_kernel_bound_share": k5_bound / k5_ms,
+          "schedule_emit_kernels_ms": emit_ms,
+          "schedule_emit_kernels_bytes": work["wide_emit"][0],
+          "schedule_emit_kernels_bound_ms": emit_bound,
+          "schedule_emit_kernels_bound_share": emit_bound / emit_ms,
           "decode_kernel_bytes": work["wide_decode"][0],
           "decode_kernel_bound_ms": dec_bound,
           "decode_kernel_bound_share": dec_bound / dec_ms, "card": card})

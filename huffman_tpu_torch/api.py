@@ -55,6 +55,10 @@ class Encoded:
         from .golden.numpy_codec import words_to_packed_bytes
         return words_to_packed_bytes(self.stream_words, self.total_bits)
 
+    @property
+    def ratio(self) -> float:
+        return (self.total_bits / 8) / max(self.n_bytes, 1)
+
 
 def _as_u8(data) -> np.ndarray:
     if isinstance(data, (bytes, bytearray)):

@@ -1,9 +1,9 @@
 """Runtime configuration of the codec (counterpart of huffman_tpu/config.py).
 
-Same knobs and defaults as the JAX package, minus the speculative-capacity
-knob (`spec_bits_per_byte`), since the port encodes at the guaranteed
-capacity and does not speculate, and minus `table_bits`, since the decoder
-sizes its table from the codebook's own longest code.
+Same knobs, order and defaults as the JAX package.  Two of them are
+accepted and checked but steer no kernel: `table_bits` (the decoder sizes
+its table from the codebook's own longest code) and `spec_bits_per_byte`
+(the port encodes at the guaranteed capacity and does not speculate).
 """
 
 from __future__ import annotations
@@ -20,6 +20,10 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def round_up(x: int, m: int) -> int:
+    return cdiv(x, m) * m
+
+
 @dataclasses.dataclass(frozen=True)
 class CodecConfig:
     """All runtime knobs of the codec.
@@ -31,30 +35,50 @@ class CodecConfig:
         byte; a block that needs more raises OverflowError when
         check_overflow is set.
       check_overflow: verify on the host that no block overflowed.
+      table_bits: decoder lookup-table width, at least max_code_len; the
+        JAX package's Mosaic decoder reads it, the port's does not.
       narrow_tol: relative size tolerance for preferring a cap-4/cap-8
         codebook (Codebook.from_frequencies_auto); 0 disables.
+      spec_bits_per_byte: the JAX package's speculative per-block capacity
+        for its Mosaic encoder; the port does not speculate.
     """
 
     block_bytes: int = 1024
     max_code_len: int = 12
     capacity_bits_per_byte: int = 8
     check_overflow: bool = True
+    table_bits: int | None = None
     narrow_tol: float = 0.01
+    spec_bits_per_byte: int = 4
 
     def __post_init__(self):
         if self.block_bytes % WORD_BYTES != 0:
             raise ValueError("block_bytes must be a multiple of 4")
         if not (1 <= self.max_code_len <= 24):
             raise ValueError("max_code_len must be in [1, 24]")
+        if self.table_bits is not None and self.table_bits < self.max_code_len:
+            raise ValueError("table_bits must be >= max_code_len")
+
+    @property
+    def block_words(self) -> int:
+        return self.block_bytes // WORD_BYTES
 
     @property
     def capacity_words(self) -> int:
         """Encoded-output capacity per block, in 32-bit words."""
         return cdiv(self.block_bytes * self.capacity_bits_per_byte, WORD_BITS)
 
+    @property
+    def decode_table_bits(self) -> int:
+        return (self.table_bits if self.table_bits is not None
+                else self.max_code_len)
+
     def num_blocks(self, n_bytes: int) -> int:
         """Blocks needed for an n-byte stream (the last may be partial)."""
         return max(1, cdiv(n_bytes, self.block_bytes))
+
+    def padded_bytes(self, n_bytes: int) -> int:
+        return self.num_blocks(n_bytes) * self.block_bytes
 
 
 DEFAULT_CONFIG = CodecConfig()

@@ -37,8 +37,8 @@ _SIGNATURES = {
     "huff_pack_blocks": [_p, _p, _p, _p, _p, _ll, _i, _ll, _i, _i, _p],
     "huff_decode_blocks": [_p, _ll, _p, _p, _p, _p, _i, _p, _ll, _i, _p],
     "huff_wide_sub_encode": [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _p],
-    "huff_wide_schedule": [_p, _p, _p, _p, _i, _i, _p],
-    "huff_wide_emit": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _p, _p],
+    "huff_wide_schedule": [_p, _p, _p, _p, _p, _i, _i, _p],
+    "huff_wide_emit": [_p, _i, _p, _p, _p, _p, _i, _p, _p],
     "huff_wide_decode": [_p, _ll, _p, _p, _p, _p, _p, _i, _p, _i, _p],
 }
 

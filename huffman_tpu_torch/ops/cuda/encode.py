@@ -12,8 +12,9 @@ SOURCE = "huffman_tpu_torch/csrc/encode.cu"
 REPLACES = "huffman_tpu/ops/pallas/encode.py:716"
 launches = Counter()
 
-MAX_BLOCK_BYTES = 4096              # encode_rows_cta: 1024 threads
-MAX_CAPACITY_WORDS = 200 * 1024 // 4    # its block's words in shared memory
+# a block's bit count (codes of up to 24 bits) must fit the 31 bits below
+# MISS_FLAG; any multiple of 4 up to that, at any capacity, encodes
+MAX_BLOCK_BYTES = (2**31 - 1) // 24 // 4 * 4
 
 
 def encode_blocks(byte_blocks: torch.Tensor, codes: torch.Tensor,
@@ -32,9 +33,8 @@ def encode_blocks(byte_blocks: torch.Tensor, codes: torch.Tensor,
     if bb % 4 or not 0 < bb <= MAX_BLOCK_BYTES:
         raise ValueError(f"encode kernel needs block_bytes a multiple of 4 "
                          f"in [4, {MAX_BLOCK_BYTES}], got {bb}")
-    if not 0 < cap <= MAX_CAPACITY_WORDS:
-        raise ValueError(f"encode kernel needs capacity_words in "
-                         f"[1, {MAX_CAPACITY_WORDS}], got {cap}")
+    if cap <= 0:
+        raise ValueError(f"encode kernel needs capacity_words >= 1, got {cap}")
     _build.require(byte_blocks, "byte_blocks", torch.uint8, (nb, bb), dev)
     _build.require(codes, "codes", torch.int32, (256,), dev)
     _build.require(lengths, "lengths", torch.int32, (256,), dev)

@@ -9,10 +9,11 @@ out by that row number (NS = NT * N_SUB rows).
   sub_encode       K5: each substream's own MSB-first stream and `l2`, the
                    bit count of each 4-byte item (huffman_tpu/wide.py
                    _sub_encode_device).
-  schedule_counts  the 64-round reader recursion: per-round pull bases and
-                   each tile's plane length (wide._schedule_counts).
+  schedule_counts  the 64-round reader recursion: per-round pull bases,
+                   each tile's plane length (wide._schedule_counts) and
+                   each substream's 64-bit pull mask.
   emit_planes      K6 relayout + K7 emit: every pulled word pair written to
-                   its place in the container payload
+                   its place in the container payload, from the pull masks
                    (ops/pallas/wide.py relayout_pallas, emit_planes_pallas).
   decode_tiles     K8: the 1024-lane reader (decode_wide_pallas).
 
@@ -93,28 +94,32 @@ def schedule_counts(l2: torch.Tensor, tile_bytes: torch.Tensor, mcl: int):
       tile_bytes: (NT,) int32 real bytes of each tile.
       mcl: the codebook's actual max code length.
 
-    Returns bases (NT, ROUNDS) int32, the pulls before each round, and
-    tile_words (NT,) int32, each tile's plane length (its total pulls).
+    Returns bases (NT, ROUNDS) int32, the pulls before each round;
+    tile_words (NT,) int32, each tile's plane length (its total pulls); and
+    masks (NS,) int64, bit j of substream k's set iff it pulls in round j
+    (bit 63 is the sign bit).
     """
     _count("schedule_counts", l2)
     nt = tile_bytes.shape[0]
     n_k = substream_valid(tile_bytes)
     lens = l2.to(torch.int64).view(nt, N_SUB, ITEMS)
     avail = torch.zeros_like(n_k)
+    masks = torch.zeros_like(n_k)
     cnts = []
     for j in range(ROUNDS):
         pull = pull_mask(avail, n_k, j, mcl)
         cnts.append(pull.sum(dim=1))
+        masks = masks | (pull.to(torch.int64) << j)
         avail = avail + 64 * pull - lens[:, :, j]
     cnts = torch.stack(cnts, dim=1)
     bases = torch.cumsum(cnts, dim=1) - cnts
-    return bases.to(torch.int32), cnts.sum(dim=1).to(torch.int32)
+    return (bases.to(torch.int32), cnts.sum(dim=1).to(torch.int32),
+            masks.view(-1))
 
 
-def emit_planes(streams: torch.Tensor, l2: torch.Tensor,
-                tile_bytes: torch.Tensor, bases: torch.Tensor,
-                tile_words: torch.Tensor, offsets: torch.Tensor, mcl: int,
-                n_words: int) -> torch.Tensor:
+def emit_planes(streams: torch.Tensor, masks: torch.Tensor,
+                bases: torch.Tensor, tile_words: torch.Tensor,
+                offsets: torch.Tensor, n_words: int) -> torch.Tensor:
     """K6 + K7: the container payload.
 
     Tile t's payload starts at word offsets[t] and holds plane P0, then
@@ -123,25 +128,23 @@ def emit_planes(streams: torch.Tensor, l2: torch.Tensor,
     a pull moves the substream's next two stream words, the first to P0
     and the second to P1.
 
-    Args: streams, l2 from sub_encode; tile_bytes (NT,) int32; bases,
-      tile_words from schedule_counts; offsets (NT,) int64; n_words, the
-      payload length (sum of 2 * tile_words).
+    Args: streams from sub_encode; masks, bases, tile_words from
+      schedule_counts; offsets (NT,) int64; n_words, the payload length
+      (sum of 2 * tile_words).
     Returns (n_words,) int32.
     """
     _count("emit_planes", streams)
-    nt = tile_bytes.shape[0]
+    nt = bases.shape[0]
     slot = streams.shape[1]
     dev = streams.device
     words = bitio.to_u32(streams).view(nt, N_SUB, slot)
-    n_k = substream_valid(tile_bytes)
-    lens = l2.to(torch.int64).view(nt, N_SUB, ITEMS)
+    m = masks.to(torch.int64).view(nt, N_SUB)
     start = offsets.to(torch.int64)[:, None]
     tw = tile_words.to(torch.int64)[:, None]
-    avail = torch.zeros_like(n_k)
-    wcur = torch.zeros_like(n_k)
+    wcur = torch.zeros_like(m)
     out = torch.zeros(n_words, dtype=torch.int64, device=dev)
     for j in range(ROUNDS):
-        pull = pull_mask(avail, n_k, j, mcl)
+        pull = ((m >> j) & 1).bool()
         rank = torch.cumsum(pull, dim=1) - pull.to(torch.int64)
         dst = start + bases.to(torch.int64)[:, j:j + 1] + rank
         for half in (0, 1):
@@ -150,7 +153,6 @@ def emit_planes(streams: torch.Tensor, l2: torch.Tensor,
             val = torch.where(w < slot, val[:, :, 0], 0)
             out[(dst + half * tw)[pull]] = val[pull]
         wcur = wcur + 2 * pull
-        avail = avail + 64 * pull - lens[:, :, j]
     return bitio.to_i32(out)
 
 

@@ -4,10 +4,10 @@ Format spec: golden/wide_codec.py; in-memory form of container v3.
 
 encode_wide: bytes to the device as (NS, 256) substream rows -> histogram
 (device) + codebook (host) -> K5 substream encode -> one host sync for
-the miss flags -> schedule kernel (bases, tile_words) -> int64 cumsum of
-2 * tile_words, the tiles' payload offsets -> one host sync for the
-payload length -> K7 emit straight into the payload -> payload, tile_words
-and bases to the host.
+the miss flags -> schedule kernel (bases, tile_words, pull masks) -> int64
+cumsum of 2 * tile_words, the tiles' payload offsets -> one host sync for
+the payload length -> K7 emit straight into the payload -> payload,
+tile_words and bases to the host.
 decode_wide / decode_wide_range: host offsets from tile_words -> the
 covering tiles' payload span to the device -> K8 over those tiles -> bytes.
 
@@ -107,10 +107,10 @@ def encode_substreams(rows: torch.Tensor, valid: torch.Tensor,
         raise ValueError("input contains symbols absent from the codebook")
     nt = rows.shape[0] // N_SUB
     tb = api._from_numpy(tile_bytes(n_bytes, 0, nt), device)
-    bases, tile_words = k_emit.schedule_counts(l2, tb, mcl)
+    bases, tile_words, masks = k_emit.schedule_counts(l2, tb, mcl)
     offsets, n_words = payload_offsets(tile_words)
-    payload = k_emit.emit_planes(streams, l2, tb, bases, tile_words, offsets,
-                                 mcl, n_words)
+    payload = k_emit.emit_planes(streams, masks, bases, tile_words, offsets,
+                                 n_words)
     return payload, tile_words, bases
 
 

@@ -43,19 +43,14 @@ input.
 
 from __future__ import annotations
 
-import argparse
-import json
 import os
-import shutil
-import subprocess
 import sys
-import tempfile
-import time
 
 import numpy as np
 
-SIZES = {"64MiB": 64 << 20, "1GiB": 1 << 30}
-REPS = {"64MiB": 20, "1GiB": 5}
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import ablation  # noqa: E402  (the shared runner, beside this script)
+
 
 # variant -> {kernel source: [alternative, ...]}: an alternative is a list
 # of (old text, new text) pairs, and the first alternative whose every old
@@ -129,23 +124,8 @@ EXACT = {"baseline", "lines128", "one_cta", "ring8"}
 
 def patch_tree(tree: str, dst: str, variant: str) -> dict:
     """Copy tree's package to dst and apply the variant; returns which
-    kernels the variant applies to."""
-    shutil.copytree(os.path.join(tree, "huffman_tpu_torch"),
-                    os.path.join(dst, "huffman_tpu_torch"),
-                    ignore=shutil.ignore_patterns("build", "__pycache__"))
-    applied = {}
-    for src, alternatives in VARIANTS[variant].items():
-        path = os.path.join(dst, "huffman_tpu_torch", "csrc", src)
-        text = open(path).read()
-        applied[src] = False
-        for pairs in alternatives:
-            if all(old in text for old, _ in pairs):
-                for old, new in pairs:
-                    text = text.replace(old, new)
-                open(path, "w").write(text)
-                applied[src] = True
-                break
-    return applied
+    kernel sources the variant applies to."""
+    return ablation.patch_tree(tree, dst, VARIANTS[variant])
 
 
 def child(pkg_root: str, data_dir: str, check: bool) -> dict:
@@ -179,7 +159,7 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
     res = {"ptxas": [" ".join(x.strip() for x in lines[i: i + 3])
                      for i, ln in enumerate(lines)
                      if "Compiling entry" in ln and "decode" in ln]}
-    for name, n in SIZES.items():
+    for name, n in ablation.SIZES.items():
         data = np.load(os.path.join(data_dir, f"{name}.npy"))
         enc = api.encode(data, device="cuda")
         bb = enc.config.block_bytes
@@ -211,8 +191,8 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
                 if not np.array_equal(fn().reshape(-1)[:n].cpu().numpy(),
                                       data):
                     raise RuntimeError(f"{kernel} output != input at {name}")
-        res[name] = {"dense_decode_ms": ms(k4, REPS[name]),
-                     "wide_decode_ms": ms(k8, REPS[name]),
+        res[name] = {"dense_decode_ms": ms(k4, ablation.REPS[name]),
+                     "wide_decode_ms": ms(k8, ablation.REPS[name]),
                      "stream_bytes": int(enc.stream_words.nbytes),
                      "payload_bytes": int(wenc.payload_words.nbytes)}
         del stream, w_args, offs, valid
@@ -220,69 +200,6 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
     return res
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tree", default=".")
-    ap.add_argument("--out", default=None)
-    ap.add_argument("--variants", default=",".join(VARIANTS))
-    ap.add_argument("--data", default=None,
-                    help="directory that keeps the generated inputs "
-                         "between runs (default: a temporary one)")
-    ap.add_argument("--child", nargs=3, metavar=("PKG_ROOT", "DATA", "CHECK"),
-                    help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.child:
-        root, data_dir, check = args.child
-        print("ABLATE" + json.dumps(child(root, data_dir, check == "1")),
-              flush=True)
-        return 0
-    import torch
-    if not torch.cuda.is_available():
-        print("ablate_decoders: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__))))
-    from huffman_tpu_torch.utils import testdata
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    tree = os.path.abspath(args.tree)
-    out = {"tree": tree, "card": card, "variants": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir = args.data or tmp
-        os.makedirs(data_dir, exist_ok=True)
-        t0 = time.perf_counter()
-        for name, n in SIZES.items():
-            path = os.path.join(data_dir, f"{name}.npy")
-            if not os.path.exists(path):
-                np.save(path, testdata.entropy_stream(n, seed=0))
-        out["datagen_s"] = time.perf_counter() - t0
-        for v in args.variants.split(","):
-            vdir = os.path.join(tmp, v)
-            applied = patch_tree(tree, vdir, v)
-            if VARIANTS[v] and not any(applied.values()):
-                out["variants"][v] = {"applies": applied}
-                continue
-            r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--child", vdir, data_dir,
-                                "1" if v in EXACT else "0"],
-                               capture_output=True, text=True, timeout=600)
-            lines = [ln for ln in r.stdout.splitlines()
-                     if ln.startswith("ABLATE")]
-            if r.returncode or not lines:
-                raise RuntimeError(f"variant {v} failed:\n{r.stdout[-3000:]}"
-                                   f"\n{r.stderr[-3000:]}")
-            rec = json.loads(lines[-1][len("ABLATE"):])
-            rec["applies"] = applied
-            out["variants"][v] = rec
-            print(json.dumps({v: rec}), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-    print(card)
-    return 0
-
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ablation.main(__file__, __doc__, VARIANTS, EXACT, child))

