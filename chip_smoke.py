@@ -13,8 +13,11 @@ Phases, each printing one JSON line:
                event times of both; then a uniform 256-symbol input (every
                block exactly at capacity), a 14-bit codebook, a 20-bit one
                (decode table in device memory), pack alone on blocks that
-               spill into their neighbours, small edge cases (64-byte
-               blocks, and 4096-byte ones: K1's two routes), and K4 over
+               spill into their neighbours, pack alone on tiny blocks
+               (0..40 bits, runs of blocks sharing one word, some past
+               their capacity) at start phases 0 and 13 with 16- and
+               4-byte staging, small edge cases (64-byte blocks, and
+               4096-byte ones: K1's two routes), and K4 over
                a span of blocks (api.decode_block_span) that starts at a
                nonzero bit shift and ends at the stream's last word.
                Blocks past 4 KiB: 8192 bytes (the CLI's --block-bytes
@@ -29,8 +32,8 @@ Phases, each printing one JSON line:
                bit-exact against the C++ golden encoder, container dumps ->
                loads -> api.decode equal to the input, decode_range over a
                span that crosses blocks; launch counts read around that run;
-               end-to-end and kernel-only rates; K1's and K4's 1 GiB times
-               beside their bounds.
+               end-to-end and kernel-only rates; K1's, pack's and K4's
+               1 GiB times beside their bounds, and the offset scan's.
   5. wide_kernels - each wide kernel (K5 substream encode, the schedule and
                K7 emit, K8 decode) against its plain version, exactly: at
                64 MiB (256 tiles) of the main profile with CUDA event times;
@@ -334,6 +337,42 @@ def compare_pack_full(card: str, errs: dict) -> dict:
             "max_abs_err": {"pack": e}, "card": card}
 
 
+def compare_pack_tiny(card: str, errs: dict) -> dict:
+    """Pack alone on 65,536 blocks of 0..40 bits, a fifth of them empty, so
+    that runs of blocks share one output word, at start phases 0 and 13 (a
+    shard's), at capacity 4 (16-byte staging) and 2 (4-byte staging); then
+    with one block in 64 at 200 bits, past its capacity, whose live words
+    alone count."""
+    from huffman_tpu_torch.ops import pack as p_pack
+    from huffman_tpu_torch.ops.cuda import pack2 as k_pack
+    from huffman_tpu_torch.ops.scan import exclusive_bit_offsets
+    from huffman_tpu_torch.utils import testdata
+
+    nb = 65536
+    rng = np.random.default_rng(12)
+    tiny = rng.integers(0, 41, size=nb)
+    tiny[rng.permutation(nb)[: nb // 5]] = 0
+    over = tiny.copy()
+    over[::64] = 200
+    e, words = 0, {}
+    for label, bits_np in (("tiny", tiny), ("overflow", over)):
+        for cap in (4, 2):
+            streams = torch.from_numpy(testdata.random_block_streams(
+                bits_np, cap, 12).view(np.int32)).cuda()
+            bits = torch.from_numpy(bits_np.astype(np.int32)).cuda()
+            for start in (0, 13):
+                offs = exclusive_bit_offsets(bits, start)
+                n_words = int(offs.total_words)
+                e = max(e, max_abs_err(
+                    Stages.pack(k_pack, streams, bits, offs, n_words),
+                    Stages.pack(p_pack, streams, bits, offs, n_words)))
+                words[f"{label}_cap{cap}_start{start}"] = n_words
+    require(e == 0, f"pack_tiny_blocks: pack kernel != plain (max err {e})")
+    errs["pack"] = max(errs.get("pack", 0), e)
+    return {"phase": "kernels", "case": "pack_tiny_blocks", "blocks": nb,
+            "stream_words": words, "max_abs_err": {"pack": e}, "card": card}
+
+
 def edge_data(n: int = 64 * 300 + 37):
     """Small explicit-codebook cases: with 64-byte blocks, a partial warp of
     16 lanes; a final partial block, a 4-byte group that is exactly 32
@@ -470,6 +509,7 @@ def phase_kernels(card: str, errs: dict, times: dict) -> None:
                          codebook=Codebook.from_lengths(lens)))
 
     emit(compare_pack_full(card, errs))
+    emit(compare_pack_tiny(card, errs))
 
     data, cb = edge_data()
     emit(compare_kernels("edges_bb64_24bit", data,
@@ -557,10 +597,18 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     enc_ms = cuda_ms(enc_kernels, 5)
     k1_ms = graph_ms(lambda: st.encode(k_encode), 5)
     dec_ms = graph_ms(lambda: st.decode(k_decode, w_k, offs), 5)
+    # pack and the offset scan alone, on K1's streams of this input
+    s_k, b_k = st.encode(k_encode)
+    b_k = b_k & BITS_MASK
+    offs_k = exclusive_bit_offsets(b_k)
+    pack_ms = graph_ms(lambda: st.pack(k_pack, s_k, b_k, offs_k, n_words), 5)
+    scan_ms = graph_ms(lambda: exclusive_bit_offsets(b_k), 5)
+    del s_k, b_k, offs_k
     work = dense_work(len(enc.block_bits), st.cfg.block_bytes,
                       st.cfg.capacity_words, bits_t, n_words, st.tb)
     k1_bound = bound(work["encode"])[0]
-    enc_bound = k1_bound + bound(work["pack"])[0]
+    pack_bound = bound(work["pack"])[0]
+    enc_bound = k1_bound + pack_bound
     dec_bound = bound(work["dense_decode"])[0]
     gb = data.size / 1e9
     emit({"phase": "main", "bytes": int(data.size), "blocks": len(enc.block_bits),
@@ -580,6 +628,10 @@ def phase_main(card: str, data: np.ndarray) -> dict:
           "encode_kernel_bytes": work["encode"][0],
           "encode_kernel_bound_ms": k1_bound,
           "encode_kernel_bound_share": k1_bound / k1_ms,
+          "pack_kernel_ms": pack_ms, "pack_kernel_bytes": work["pack"][0],
+          "pack_kernel_bound_ms": pack_bound,
+          "pack_kernel_bound_share": pack_bound / pack_ms,
+          "scan_ms": scan_ms,
           "decode_kernel_bytes": work["dense_decode"][0],
           "decode_kernel_bound_ms": dec_bound,
           "decode_kernel_bound_share": dec_bound / dec_ms,

@@ -34,7 +34,7 @@ _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _SIGNATURES = {
     "huff_encode_blocks": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _p],
-    "huff_pack_blocks": [_p, _p, _p, _p, _p, _ll, _i, _ll, _i, _i, _p],
+    "huff_pack_blocks": [_p, _p, _p, _p, _p, _ll, _i, _ll, _p],
     "huff_decode_blocks": [_p, _ll, _p, _p, _p, _p, _i, _p, _ll, _i, _p],
     "huff_wide_sub_encode": [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _p],
     "huff_wide_schedule": [_p, _p, _p, _p, _p, _i, _i, _p],
@@ -128,14 +128,6 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(
             f"{name}: want a contiguous {dtype} tensor of shape {shape} on "
             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-
-
-def launch_geometry(device: torch.device, n_items: int, items_per_cta: int,
-                    ctas_per_sm: int) -> int:
-    """CTAs for a grid-stride launch over n_items: enough to fill every SM
-    `ctas_per_sm` deep, and no more than the work needs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n_items // items_per_cta), sms * ctas_per_sm))
 
 
 def stream_ptr(device: torch.device) -> int:

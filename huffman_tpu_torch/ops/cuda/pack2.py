@@ -1,6 +1,8 @@
 """Wrapper of the CUDA dense pack (csrc/pack.cu): one kernel in place of
 the Pallas pair K2 preshift (huffman_tpu/ops/pallas/pack2.py:332) and K3
-tile pack (:383)."""
+tile pack (:383).  The kernel builds the stream tile by tile in shared
+memory and writes every word of it once, so the output needs no zero
+fill."""
 
 from __future__ import annotations
 
@@ -14,13 +16,13 @@ SOURCE = "huffman_tpu_torch/csrc/pack.cu"
 REPLACES = "huffman_tpu/ops/pallas/pack2.py:383"
 launches = Counter()
 
-THREADS = 256                       # 8 warps: one block stream per warp
-
 
 def pack_blocks(streams: torch.Tensor, block_bits: torch.Tensor,
                 word_base: torch.Tensor, bit_shift: torch.Tensor,
                 n_words: int) -> torch.Tensor:
-    """ops.pack.pack_blocks on the card; same arguments and result."""
+    """ops.pack.pack_blocks on the card; same arguments and result.  The
+    offsets are those of ops.scan.exclusive_bit_offsets (word_base
+    nondecreasing), and each stream is zero past its block's bits."""
     if streams.device.type == "cpu":
         return plain.pack_blocks(streams, block_bits, word_base, bit_shift,
                                  n_words)
@@ -32,17 +34,15 @@ def pack_blocks(streams: torch.Tensor, block_bits: torch.Tensor,
     _build.require(block_bits, "block_bits", torch.int32, (nb,), dev)
     _build.require(word_base, "word_base", torch.int64, (nb,), dev)
     _build.require(bit_shift, "bit_shift", torch.int32, (nb,), dev)
-    # seam words are atomicOr'ed, so the output starts zeroed
-    out = torch.zeros(n_words, dtype=torch.int32, device=dev)
-    if nb == 0 or n_words == 0:
+    out = torch.empty(n_words, dtype=torch.int32, device=dev)
+    if n_words == 0:
         return out
     lib = _build.load_library()
-    grid = _build.launch_geometry(dev, nb, THREADS // 32, 8)
     with torch.cuda.device(dev):          # the launch uses the current device
         err = lib.huff_pack_blocks(
             streams.data_ptr(), block_bits.data_ptr(), word_base.data_ptr(),
-            bit_shift.data_ptr(), out.data_ptr(), nb, cap, n_words, grid,
-            THREADS, _build.stream_ptr(dev))
+            bit_shift.data_ptr(), out.data_ptr(), nb, cap, n_words,
+            _build.stream_ptr(dev))
     _build.check(err, "pack")
     launches.n += 1
     return out

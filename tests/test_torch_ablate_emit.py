@@ -27,9 +27,8 @@ A = _load(os.path.join(SCRIPTS, "ablate_emit.py"))
 # the TPU functions of K6 and K7 that no path runs
 K6_K7_PROBES = {"probe_emit.py:25", "probe_relayout.py:24",
                 "probe_relayout.py:129"}
-# experiments whose Pallas kernels no ablation script stands for yet: the
-# pack probes, ported with pack's redesign
-PENDING = {"pallas_pack_v1.py", "probe_pack_fusion.py"}
+# experiments whose Pallas kernels no ablation script stands for yet: none
+PENDING = set()
 
 
 @pytest.mark.parametrize("variant", list(A.VARIANTS))

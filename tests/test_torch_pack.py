@@ -82,15 +82,22 @@ def test_pack_vs_pallas_interpret_and_xla(n, nsym, capb, seed):
     (384, 17, "mixed", 22),
     (128, 50, "full", 23),       # last source word live: the spill word
     (256, 33, "full", 24),
+    (2, 700, "tiny", 25),        # runs of blocks share one output word
+    (4, 513, "tiny", 26),
 ])
 def test_pack_random_streams_vs_numpy_reference(cap, nb, kind, seed):
     """Random payload bits against the JAX package's numpy pack twin,
-    ops.pack.pack_reference: any lengths with zero-bit rows ("mixed"), or
+    ops.pack.pack_reference: any lengths with zero-bit rows ("mixed"),
     blocks within two words of capacity, whose shifted last word spills
-    into the next block's first word ("full")."""
+    into the next block's first word ("full"), or 0..40 bits with a fifth
+    of the rows empty, so that several blocks share one output word
+    ("tiny")."""
     rng = np.random.default_rng(seed)
     if kind == "mixed":
         bits = rng.integers(0, cap * 32 + 1, size=nb)
+        bits[rng.permutation(nb)[: nb // 5]] = 0
+    elif kind == "tiny":
+        bits = rng.integers(0, 41, size=nb)
         bits[rng.permutation(nb)[: nb // 5]] = 0
     else:
         bits = rng.integers(cap * 32 - 64, cap * 32 + 1, size=nb)
@@ -103,3 +110,30 @@ def test_pack_random_streams_vs_numpy_reference(cap, nb, kind, seed):
     ref_words, total = ref_pack.pack_reference(words, bits)
     assert total == int(offs.total_bits)
     np.testing.assert_array_equal(got, ref_words[: got.size])
+
+
+@pytest.mark.parametrize("cap,kind,seed", [(2, "tiny", 27),
+                                           (256, "mixed", 28)])
+def test_pack_at_start_phase_vs_pack_at_offsets(cap, kind, seed):
+    """A shard's blocks start at bit 13 of its first word
+    (exclusive_bit_offsets(bits, 13), as parallel/pipeline.py packs them):
+    the plain pack against the JAX package's pack_at_offsets on the same
+    offsets."""
+    rng = np.random.default_rng(seed)
+    nb = 300 if kind == "tiny" else 40
+    bits = rng.integers(0, 41 if kind == "tiny" else cap * 32 + 1, size=nb)
+    bits[rng.permutation(nb)[: nb // 5]] = 0
+    words = testdata.random_block_streams(bits, cap, seed)
+    bits = bits.astype(np.int32)
+    offs = scan.exclusive_bit_offsets(torch.from_numpy(bits), 13)
+    n_words = int(offs.total_words)
+    assert int(offs.bit_shift[0]) == 13
+    got = _u32(p_pack.pack_blocks(torch.from_numpy(words.view(np.int32)),
+                                  torch.from_numpy(bits), offs.word_base,
+                                  offs.bit_shift, n_words))
+    word_base = offs.word_base.numpy().astype(np.int32)
+    ref = np.asarray(ref_pack.pack_at_offsets(
+        jnp.asarray(words), jnp.asarray(word_base),
+        jnp.asarray(offs.bit_shift.numpy()), n_words))
+    np.testing.assert_array_equal(got, ref)
+    assert got[0] >> 19 == 0                  # bits 0..12 of the stream empty
