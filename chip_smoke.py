@@ -9,11 +9,12 @@ Phases, each printing one JSON line:
                and the -Xptxas -v register/spill lines.
   3. kernels - each dense kernel (K1 encode, pack, K4 decode) against its
                plain PyTorch version on the card, exactly: at the main path's
-               shapes (64 MiB, 65536 blocks, capacity 256 words) with CUDA
-               event times of both; then a uniform 256-symbol input (every
+               shapes (64 MiB, 65536 blocks, K1 at the capacity api.encode
+               keeps for that input) with times of both; then a uniform 256-symbol input (every
                block exactly at capacity), a 14-bit codebook, a 20-bit one
                (decode table in device memory), pack alone on blocks that
-               spill into their neighbours, pack alone on tiny blocks
+               spill into their neighbours (at 256 and 128 words), pack
+               alone on tiny blocks
                (0..40 bits, runs of blocks sharing one word, some past
                their capacity) at start phases 0 and 13 with 16- and
                4-byte staging, small edge cases (64-byte blocks, and
@@ -27,13 +28,28 @@ Phases, each printing one JSON line:
                at 262,144 bytes against the input alone: its plain version
                loops once a byte of the block), then api.encode equal to
                the golden encoder, api.decode and decode_range equal to
-               the input.
+               the input.  Then the encode driver's branches through
+               api.encode_traced, each against the golden encoder under its
+               final codebook, decoded, with K1's launches counted: a
+               sampled codebook that holds (64 MiB), a forced miss that
+               rebuilds (8 MiB), a speculative capacity one block overflows
+               (2 MiB), a chunked input with a partial last chunk and block
+               (40 MiB + 37 bytes), and the ValueError of a given codebook
+               on the chunked path.
   4. main    - the dense path at 1 GiB, 32 symbols at H = 2.2066: api.encode
                bit-exact against the C++ golden encoder, container dumps ->
-               loads -> api.decode equal to the input, decode_range over a
-               span that crosses blocks; launch counts read around that run;
-               end-to-end and kernel-only rates; K1's, pack's and K4's
-               1 GiB times beside their bounds, and the offset scan's.
+               loads -> api.decode equal to the input, decode_range from a
+               block at a nonzero bit shift equal to the input and to the
+               golden decoder; launch counts read around that run; how the
+               driver ran (sampled, rebuilt, capacities tried, chunks) and
+               the final codebook's bits/byte beside the exact one's;
+               end-to-end and kernel-only rates; K1's 1 GiB time at 128 and
+               256 words, pack's and K4's beside their bounds, and the
+               offset scan's.  Then dense_breakdown (each stage of the
+               driver, the staging ring against the parent's pageable copy)
+               and main_parent_flow (api.encode as the parent ran it, with
+               no sampling, chunks or speculation, in turns with the
+               change).
   5. wide_kernels - each wide kernel (K5 substream encode, the schedule and
                K7 emit, K8 decode) against its plain version, exactly: at
                64 MiB (256 tiles) of the main profile with CUDA event times;
@@ -52,8 +68,9 @@ Phases, each printing one JSON line:
                1 GiB times beside their bounds, a per-stage wall
                breakdown, and bits per byte beside the dense stream's.
   7. sharded - parallel.ShardedCodec over four shards of cuda:0 on the same
-               1 GiB: the dense encode equal to phase 4's stream and
-               container, the wide encode equal to phase 6's container, both
+               1 GiB: its codebook the exact one, the dense encode equal to
+               api.encode's stream and container under that codebook, the
+               wide encode equal to phase 6's container, both
                decodes equal to the input; launch counts read around that run
                (every kernel at least once per shard); walls beside the
                single-device walls of phases 4 and 6, and a per-stage
@@ -63,21 +80,24 @@ Phases, each printing one JSON line:
   8. multiprocess - two copies of this script (--worker RANK 2 PORT) join one
                gloo process group with two shards of cuda:0 each, a mesh of
                four: on 64 MiB of the same profile each checks the dense
-               stream and the wide container against the single-device ones
-               and both roundtrips, and prints an OK line; the run fails if a
+               codebook against the exact one, the dense stream against
+               api.encode's under it, the wide container against the
+               single-device one and both roundtrips, and prints an OK
+               line; the run fails if a
                worker fails, times out or prints none.
 Then the kernels line (each kernel's launches on the main paths, its
 error against its plain version, its time (the device time of launches
 captured in a CUDA graph: graph_ms), the plain version's, and its bound:
 the larger of the bytes it must move at 3.35 TB/s and its operations at
-67 T/s, all at the 64 MiB kernel shapes), the card's nvidia-smi line, and
-the result line.
+67 T/s, all at the 64 MiB kernel shapes, K1 at the capacity api.encode
+keeps there), the card's nvidia-smi line, and the result line.
 Any mismatch raises and the script exits non-zero, as it does when no
 CUDA device is available.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import socket
@@ -213,12 +233,15 @@ def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> int:
 class Stages:
     """The three kernels of the main path next to their plain versions,
     on device-resident inputs prepared once, so that a timed call is the
-    wrapper's launch alone."""
+    wrapper's launch alone.  K1 runs at capacity `cap` words (default
+    cfg.capacity_words)."""
 
-    def __init__(self, data: np.ndarray, cfg, codebook=None):
+    def __init__(self, data: np.ndarray, cfg, codebook=None,
+                 cap: int | None = None):
         from huffman_tpu_torch import api
         from huffman_tpu_torch.ops.decode import table_entries
         self.cfg = cfg
+        self.cap = cap or cfg.capacity_words
         self.blocks, self.valid = api.device_blocks(data, cfg,
                                                      torch.device("cuda"))
         self.cb = codebook or api.build_codebook(data, cfg, device="cuda")
@@ -228,9 +251,9 @@ class Stages:
         self.tb = max(self.cb.max_len, 1)
         self.table = torch.from_numpy(table_entries(self.cb, self.tb)).cuda()
 
-    def encode(self, mod):
+    def encode(self, mod, cap: int | None = None):
         return mod.encode_blocks(self.blocks, self.codes, self.lengths,
-                                 self.valid, self.cfg.capacity_words)
+                                 self.valid, cap or self.cap)
 
     @staticmethod
     def pack(mod, streams, bits, offs, n_words: int):
@@ -246,11 +269,11 @@ class Stages:
 def compare_kernels(name: str, data: np.ndarray, cfg, card: str, errs: dict,
                     codebook=None, reps: int = 0, plain_reps: int = 0,
                     times: dict | None = None,
-                    plain_decode: bool = True) -> dict:
-    """Each kernel against its plain version on the same device inputs;
-    every output must match exactly, and the decoded bytes the input.
-    Without plain_decode, K4 is held to the input alone.  Returns the
-    case's JSON record."""
+                    plain_decode: bool = True, cap: int | None = None) -> dict:
+    """Each kernel against its plain version on the same device inputs,
+    K1 at `cap` words (default cfg.capacity_words); every output must
+    match exactly, and the decoded bytes the input.  Without plain_decode,
+    K4 is held to the input alone.  Returns the case's JSON record."""
     from huffman_tpu_torch.ops import decode as p_decode
     from huffman_tpu_torch.ops import encode as p_encode
     from huffman_tpu_torch.ops import pack as p_pack
@@ -260,10 +283,10 @@ def compare_kernels(name: str, data: np.ndarray, cfg, card: str, errs: dict,
     from huffman_tpu_torch.ops.encode import BITS_MASK
     from huffman_tpu_torch.ops.scan import exclusive_bit_offsets
 
-    st = Stages(data, cfg, codebook)
+    st = Stages(data, cfg, codebook, cap)
     rec = {"phase": "kernels", "case": name, "bytes": int(data.size),
            "blocks": int(st.blocks.shape[0]),
-           "capacity_words": cfg.capacity_words,
+           "capacity_words": st.cap,
            "max_code_len": int(st.cb.max_len)}
     s_k, b_k = st.encode(k_encode)
     s_p, b_p = st.encode(p_encode)
@@ -300,8 +323,8 @@ def compare_kernels(name: str, data: np.ndarray, cfg, card: str, errs: dict,
                 graph_ms(lambda: st.decode(k_decode, w_k, offs), reps),
                 cuda_ms(lambda: st.decode(p_decode, w_k, offs), plain_reps)),
         }
-        work = dense_work(rec["blocks"], cfg.block_bytes,
-                          cfg.capacity_words, bits, n_words, st.tb)
+        work = dense_work(rec["blocks"], cfg.block_bytes, st.cap, bits,
+                          n_words, st.tb)
         rec["ms"] = {k: {"kernel": v[0], "plain": v[1], "bytes": work[k][0],
                          "operations": work[k][1], "bound": bound(work[k])}
                      for k, v in t.items()}
@@ -313,28 +336,32 @@ def compare_kernels(name: str, data: np.ndarray, cfg, card: str, errs: dict,
 
 def compare_pack_full(card: str, errs: dict) -> dict:
     """Pack alone on random streams within two words of capacity, at every
-    bit phase: each block's shifted last word spills into its neighbour's
+    bit phase, at the safe capacity (256 words) and the speculative one
+    (128): each block's shifted last word spills into its neighbour's
     first word, which encoded data at H = 2.2 never does."""
     from huffman_tpu_torch.ops import pack as p_pack
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
     from huffman_tpu_torch.ops.scan import exclusive_bit_offsets
     from huffman_tpu_torch.utils import testdata
 
-    nb, cap = 65536, 256
-    bits_np = np.random.default_rng(4).integers(cap * 32 - 64, cap * 32 + 1,
-                                                size=nb)
-    streams = torch.from_numpy(testdata.random_block_streams(bits_np, cap, 4)
-                               .view(np.int32)).cuda()
-    bits = torch.from_numpy(bits_np.astype(np.int32)).cuda()
-    offs = exclusive_bit_offsets(bits)
-    n_words = int(offs.total_words)
-    e = max_abs_err(Stages.pack(k_pack, streams, bits, offs, n_words),
-                    Stages.pack(p_pack, streams, bits, offs, n_words))
+    nb, e, total = 65536, 0, {}
+    for cap in (256, 128):
+        bits_np = np.random.default_rng(4).integers(cap * 32 - 64,
+                                                    cap * 32 + 1, size=nb)
+        streams = torch.from_numpy(testdata.random_block_streams(
+            bits_np, cap, 4).view(np.int32)).cuda()
+        bits = torch.from_numpy(bits_np.astype(np.int32)).cuda()
+        offs = exclusive_bit_offsets(bits)
+        n_words = int(offs.total_words)
+        e = max(e, max_abs_err(
+            Stages.pack(k_pack, streams, bits, offs, n_words),
+            Stages.pack(p_pack, streams, bits, offs, n_words)))
+        total[cap] = int(offs.total_bits)
     require(e == 0, f"pack_full_blocks: pack kernel != plain (max err {e})")
     errs["pack"] = max(errs.get("pack", 0), e)
     return {"phase": "kernels", "case": "pack_full_blocks", "blocks": nb,
-            "capacity_words": cap, "total_bits": int(offs.total_bits),
-            "max_abs_err": {"pack": e}, "card": card}
+            "total_bits_by_capacity": total, "max_abs_err": {"pack": e},
+            "card": card}
 
 
 def compare_pack_tiny(card: str, errs: dict) -> dict:
@@ -475,15 +502,99 @@ def compare_large_blocks(card: str, errs: dict) -> None:
     emit(rec)
 
 
+def driver_case(name: str, data: np.ndarray, card: str, codebook=None,
+                **expect) -> dict:
+    """api.encode_traced on the card: the trace's fields as `expect` says,
+    K1 launched once a chunk on the first pass and once on each later
+    pass, the stream equal to the golden encoder's under the final
+    codebook, and api.decode equal to the input."""
+    from huffman_tpu_torch import api, golden
+    from huffman_tpu_torch.golden.numpy_codec import packed_bytes_to_words
+    from huffman_tpu_torch.ops.cuda import encode as k_encode
+
+    k_encode.launches.n = 0
+    (enc, tr), enc_s = wall(lambda: api.encode_traced(data, codebook=codebook,
+                                                      device="cuda"))
+    k1 = k_encode.launches.n
+    for k, v in expect.items():
+        require(getattr(tr, k) == v, f"{name}: {k} {getattr(tr, k)} != {v}")
+    require(k1 == max(tr.chunks, 1) + len(tr.capacities_tried) - 1,
+            f"{name}: {k1} K1 launches for {tr}")
+    ref_bytes, ref_bits = golden.encode(data, enc.codebook)
+    require(enc.total_bits == ref_bits and np.array_equal(
+        enc.stream_words, packed_bytes_to_words(ref_bytes)),
+        f"{name}: api.encode stream != golden encoder")
+    require(np.array_equal(api.decode(enc, device="cuda"), data),
+            f"{name}: api.decode != input")
+    return {"phase": "kernels", "case": name, "bytes": int(data.size),
+            "sampled": tr.sampled, "rebuilt": tr.rebuilt,
+            "capacities_tried": tr.capacities_tried, "chunks": tr.chunks,
+            "k1_launches": k1, "bits_per_byte": enc.total_bits / data.size,
+            "encode_e2e_s": enc_s, "golden_bit_exact": True,
+            "roundtrip_exact": True, "card": card}
+
+
+def driver_cases(card: str) -> None:
+    """The encode driver's branches on the card: a sampled codebook that
+    holds, a forced miss with its rebuild, a speculative capacity that one
+    block overflows, chunked staging with a partial last chunk and block,
+    and the ValueError of a given codebook on the chunked path."""
+    from huffman_tpu_torch import api
+    from huffman_tpu_torch.ops.cuda import encode as k_encode
+    from huffman_tpu_torch.utils import testdata
+
+    bb, every = 1024, api.SAMPLE_EVERY
+    # 32 symbols at decay 0.75: the rarest is ~140 times in the sample
+    emit(driver_case("sampled_hit", testdata.skewed(64 << 20, seed=12), card,
+                     sampled=True, rebuilt=False, chunks=4))
+    # bytes 201 and 202 only in blocks 1 .. every - 1, which the sample skips
+    miss = testdata.entropy_stream(8 << 20, seed=13)
+    miss[1 * bb: 1 * bb + 64] = 201
+    miss[(every - 1) * bb: (every - 1) * bb + 64] = 202
+    emit(driver_case("forced_miss", miss, card, sampled=True, rebuilt=True,
+                     chunks=0))
+    # 16 bytes at 1/128 each get 7-bit codes: every 8th byte is one, and
+    # one block holds nothing else, past the 128-word speculative capacity
+    # (~7200 bits) where the other blocks stay under 3300
+    spec = testdata.entropy_stream(2 << 20, seed=14)
+    spec[::8] = 200 + np.arange(spec.size // 8) % 16
+    spec[1000 * bb: 1001 * bb] = 200 + np.arange(bb) % 16
+    emit(driver_case("spec_retry", spec, card, sampled=False, rebuilt=False,
+                     chunks=0, capacities_tried=[128, 256]))
+    emit(driver_case("chunk_tail", testdata.entropy_stream((40 << 20) + 37,
+                                                           seed=15),
+                     card, sampled=True, chunks=3))
+    # a given codebook without byte 250, which the second chunk holds
+    data = testdata.entropy_stream(20 << 20, seed=16)
+    cb = api.build_codebook(data, device="cuda")
+    require(cb.lengths[250] == 0, "explicit_book: byte 250 has a code")
+    data[(17 << 20) + 5] = 250
+    k_encode.launches.n = 0
+    try:
+        api.encode(data, codebook=cb, device="cuda")
+        raise RuntimeError("check failed: explicit_book: no ValueError")
+    except ValueError as e:
+        require("absent from the codebook" in str(e), f"explicit_book: {e}")
+    require(k_encode.launches.n == 2, "explicit_book: K1 launches "
+                                      f"{k_encode.launches.n} != 2 chunks")
+    emit({"phase": "kernels", "case": "explicit_book_missing_byte",
+          "bytes": int(data.size), "value_error": True, "k1_launches": 2,
+          "card": card})
+
+
 def phase_kernels(card: str, errs: dict, times: dict) -> None:
+    from huffman_tpu_torch import api
     from huffman_tpu_torch.codebook import Codebook
     from huffman_tpu_torch.config import CodecConfig
     from huffman_tpu_torch.utils import testdata
 
     cfg = CodecConfig()
     main = testdata.entropy_stream(KERNEL_BYTES, seed=1)
+    # K1 at the capacity api.encode keeps for this input
+    _, tr = api.encode_traced(main, cfg, device="cuda")
     emit(compare_kernels("main_path_shapes", main, cfg, card, errs,
-                         reps=20, plain_reps=2, times=times))
+                         reps=20, plain_reps=2, times=times,
+                         cap=tr.capacities_tried[-1]))
 
     uni = testdata.uniform_random(16 << 20, seed=2)
     rec = compare_kernels("uniform256_at_capacity", uni, cfg, card, errs,
@@ -524,11 +635,138 @@ def phase_kernels(card: str, errs: dict, times: dict) -> None:
                          card, errs, codebook=cb))
     emit(compare_span(card, errs))
     compare_large_blocks(card, errs)
+    driver_cases(card)
+
+
+def dense_breakdown(data: np.ndarray, enc, trace, card: str) -> dict:
+    """Host wall of each stage of api.encode's kernel path, with a
+    synchronize after each: the driver's functions called one by one, as
+    the trace of the main run says they ran (a rebuild and a retry only if
+    it had them).  Beside them, the staging ring alone, K1 alone on the
+    resident input (their sum less the staged pass is the overlap), and
+    the parent's single pageable copy of the same bytes, in turns."""
+    from huffman_tpu_torch import api
+    from huffman_tpu_torch.config import CodecConfig, cdiv
+    from huffman_tpu_torch.ops.cuda import encode as k_encode
+    from huffman_tpu_torch.ops.cuda import pack2 as k_pack
+    from huffman_tpu_torch.ops.encode import BITS_MASK
+    from huffman_tpu_torch.ops.scan import exclusive_bit_offsets
+
+    ms = {}
+
+    def stage(name, fn):
+        out, sec = wall(fn)
+        ms[name] = sec * 1e3
+        return out
+
+    require(trace.sampled and trace.chunks, f"breakdown: main ran {trace}")
+    cfg, dev, n = CodecConfig(), torch.device("cuda"), data.size
+    nb, bb = cfg.num_blocks(n), cfg.block_bytes
+    sample = stage("sample_gather", lambda: api.sample_rows(
+        data, cfg, api.SAMPLE_EVERY))
+    d_sample = stage("sample_upload", lambda: api._from_numpy(sample, dev))
+    cb = stage("sample_histogram_codebook", lambda: api._codebook_for(
+        d_sample, d_sample.numel(), cfg))
+    del sample, d_sample
+    codes, lengths = api.codebook_tensors(cb, dev)
+    caps = iter(trace.capacities_tried)
+    rows = torch.empty(nb * bb, dtype=torch.uint8, device=dev)
+    valid = api._from_numpy(api.valid_per_block(n, nb, bb), dev)
+    streams, bits, chunks = stage("chunked_h2d_k1", lambda: api._encode_staged(
+        data, rows, codes, lengths, valid, next(caps), bb))
+    raw = stage("bits_d2h", lambda: bits.cpu().numpy())
+    if trace.rebuilt:
+        cb = stage("rebuild_histogram_codebook", lambda: api._codebook_for(
+            rows.view(nb, bb), n, cfg))
+        codes, lengths = api.codebook_tensors(cb, dev)
+        streams, bits = stage("rebuild_k1", lambda: k_encode.encode_blocks(
+            rows.view(nb, bb), codes, lengths, valid, next(caps)))
+        raw = stage("rebuild_bits_d2h", lambda: bits.cpu().numpy())
+    for i, cap in enumerate(caps):
+        streams, bits = stage(f"retry_k1_{i}", lambda: k_encode.encode_blocks(
+            rows.view(nb, bb), codes, lengths, valid, cap))
+        raw = stage(f"retry_bits_d2h_{i}", lambda: bits.cpu().numpy())
+    block_bits = api.check_block_bits(raw, cfg)
+    total = int(block_bits.astype(np.int64).sum())
+
+    def scan_pack():
+        b = bits & BITS_MASK
+        offs = exclusive_bit_offsets(b)
+        return k_pack.pack_blocks(streams, b, offs.word_base, offs.bit_shift,
+                                  cdiv(total, 32))
+    stream = stage("scan_pack", scan_pack)
+    words = stage("stream_d2h", lambda: stream.cpu().numpy().view(np.uint32))
+    require(np.array_equal(words, enc.stream_words),
+            "breakdown: stream != api.encode's")
+    del streams, bits, stream, words
+    # the staged pass, its two halves alone (the ring's copies, K1 on the
+    # resident input) and the parent's pageable copy, in turns
+    k1_cap = trace.capacities_tried[0]
+    runs = {"staged_pass": lambda: api._encode_staged(
+                data, rows, codes, lengths, valid, k1_cap, bb),
+            "ring": lambda: list(api.stage_chunks(
+                data, rows, api.CHUNK_BLOCKS * bb)),
+            "k1": lambda: k_encode.encode_blocks(
+                rows.view(nb, bb), codes, lengths, valid, k1_cap),
+            "pageable": lambda: api.device_blocks(data, cfg, dev)}
+    turns = {k: [] for k in runs}
+    for how in ("staged_pass", "ring", "pageable", "k1", "k1", "pageable",
+                "ring", "staged_pass"):
+        turns[how].append(wall(runs[how])[1] * 1e3)
+    require(np.array_equal(rows[:n].cpu().numpy(), data),
+            "breakdown: staged rows != input")
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    # pinned host memory: a size the caching host allocator has not seen,
+    # then the same size again (from its cache)
+    size = 2 * (api.CHUNK_BLOCKS * bb + 4096)
+    pinned = [wall(lambda: torch.empty(size, dtype=torch.uint8,
+                                       pin_memory=True))[1] * 1e3
+              for _ in range(2)]
+    return {"phase": "dense_breakdown", "bytes": n, "chunks": chunks,
+            "ms": ms, "turns_ms": turns,
+            "staged_pass_overlap_ms": mean["ring"] + mean["k1"]
+            - mean["staged_pass"],
+            "pinned_alloc_ms": {"new": pinned[0], "cached": pinned[1]},
+            "card": card}
+
+
+def parent_flow(data: np.ndarray, card: str) -> dict:
+    """api.encode of the same input as the parent ran it (no sampling, no
+    chunks, CodecConfig(spec_bits_per_byte=0): the exact codebook, one
+    pageable copy, K1 at the safe capacity) beside the kernel path, in
+    turns, with the walls side by side."""
+    from huffman_tpu_torch import api
+    from huffman_tpu_torch.config import CodecConfig
+
+    saved = api.SAMPLE_MIN_BYTES, api.CHUNK_BLOCKS
+
+    def parent():
+        api.SAMPLE_MIN_BYTES = api.CHUNK_BLOCKS = 1 << 62
+        try:
+            return api.encode_traced(data, CodecConfig(spec_bits_per_byte=0),
+                                     device="cuda")
+        finally:
+            api.SAMPLE_MIN_BYTES, api.CHUNK_BLOCKS = saved
+
+    walls, traces = {"parent": [], "change": []}, {}
+    for who in ("parent", "change", "change", "parent"):
+        (enc, traces[who]), sec = wall(
+            parent if who == "parent" else
+            lambda: api.encode_traced(data, device="cuda"))
+        walls[who].append(sec)
+        del enc
+    tr = traces["parent"]
+    require(not tr.sampled and tr.chunks == 0
+            and len(tr.capacities_tried) == 1, f"parent flow ran {tr}")
+    return {"phase": "main_parent_flow", "bytes": int(data.size),
+            "traces": {k: dataclasses.asdict(v) for k, v in traces.items()},
+            "encode_wall_s": walls, "card": card}
 
 
 def phase_main(card: str, data: np.ndarray) -> dict:
     from huffman_tpu_torch import api, container, golden
-    from huffman_tpu_torch.golden.numpy_codec import packed_bytes_to_words
+    from huffman_tpu_torch.golden.numpy_codec import (packed_bytes_to_words,
+                                                      words_to_packed_bytes)
     from huffman_tpu_torch.ops import decode as p_decode
     from huffman_tpu_torch.ops import encode as p_encode
     from huffman_tpu_torch.ops import pack as p_pack
@@ -538,13 +776,17 @@ def phase_main(card: str, data: np.ndarray) -> dict:
 
     counters = [k_encode.launches, k_pack.launches, k_decode.launches,
                 p_encode.cuda_calls, p_pack.cuda_calls, p_decode.cuda_calls]
+    bb = 1024
+    # decode_range from a block that starts at a nonzero bit shift is
+    # chosen after the run, from its block bits; 6 KiB past it
+    span = 6 * bb + 233
 
     # --- the main path, with every count at 0 just before it ---
     for c in counters:
         c.n = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    enc = api.encode(data, device="cuda")
+    enc, trace = api.encode_traced(data, device="cuda")
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
     blob = container.dumps(enc)
@@ -552,7 +794,11 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     t0 = time.perf_counter()
     back = api.decode(enc2, device="cuda")
     dec_s = time.perf_counter() - t0
-    r0, r1 = 3 * 1024 + 100, 9 * 1024 + 333
+    ends = np.cumsum(enc2.block_bits.astype(np.int64))
+    starts = ends - enc2.block_bits
+    b0 = next(b for b in range(3, len(ends)) if starts[b] & 31)
+    r0 = b0 * bb + 100
+    r1 = r0 + span
     part = api.decode_range(enc2, r0, r1, device="cuda")
     torch.cuda.synchronize()
     launches = {"encode": k_encode.launches.n, "pack": k_pack.launches.n,
@@ -566,6 +812,9 @@ def phase_main(card: str, data: np.ndarray) -> dict:
             f"a kernel of the main path never launched: {launches}")
     require(not any(plain_calls.values()),
             f"a plain version ran on CUDA tensors: {plain_calls}")
+    require(launches["encode"] == max(trace.chunks, 1)
+            + len(trace.capacities_tried) - 1,
+            f"K1 launches {launches['encode']} for {trace}")
     t0 = time.perf_counter()
     ref_bytes, ref_bits = golden.encode(data, enc.codebook)
     golden_s = time.perf_counter() - t0
@@ -573,15 +822,26 @@ def phase_main(card: str, data: np.ndarray) -> dict:
             f"total_bits {enc.total_bits} != golden {ref_bits}")
     require(np.array_equal(enc.stream_words, packed_bytes_to_words(ref_bytes)),
             "stream words != golden encoder")
+    del ref_bytes
     require(np.array_equal(back, data), "container roundtrip != input")
     require(np.array_equal(part, data[r0:r1]), "decode_range != input")
+    # the golden decoder from the same block's first bit, at its shift
+    b1 = -(-r1 // bb)
+    w0, w1 = int(starts[b0] >> 5), -(-int(ends[b1 - 1]) // 32)
+    gold = golden.decode(words_to_packed_bytes(
+        enc.stream_words[w0:w1], (w1 - w0) * 32), r1 - b0 * bb,
+        enc.codebook, int(starts[b0] & 31))
+    require(np.array_equal(gold[r0 - b0 * bb:], part),
+            "decode_range != golden decoder")
+    exact = api.build_codebook(data, device="cuda")
 
     # kernel-only rates on device-resident data at the same size: encode
-    # is K1 + offset scan + pack, decode is K4
+    # is K1 (at the capacity the path kept) + offset scan + pack, decode K4
     from huffman_tpu_torch.config import CodecConfig
     from huffman_tpu_torch.ops.encode import BITS_MASK
     from huffman_tpu_torch.ops.scan import exclusive_bit_offsets
-    st = Stages(data, CodecConfig(), enc.codebook)
+    cap = trace.capacities_tried[-1]
+    st = Stages(data, CodecConfig(), enc.codebook, cap)
     n_words = enc.stream_words.size
 
     def enc_kernels():
@@ -595,8 +855,11 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     require(np.array_equal(w_k.cpu().numpy().view(np.uint32),
                            enc.stream_words), "device-resident encode != api")
     enc_ms = cuda_ms(enc_kernels, 5)
-    k1_ms = graph_ms(lambda: st.encode(k_encode), 5)
     dec_ms = graph_ms(lambda: st.decode(k_decode, w_k, offs), 5)
+    # K1 at the speculative and the safe capacity, each beside its bound
+    k1 = {}
+    for c in (128, 256):
+        k1[c] = graph_ms(lambda: st.encode(k_encode, c), 5)
     # pack and the offset scan alone, on K1's streams of this input
     s_k, b_k = st.encode(k_encode)
     b_k = b_k & BITS_MASK
@@ -604,18 +867,29 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     pack_ms = graph_ms(lambda: st.pack(k_pack, s_k, b_k, offs_k, n_words), 5)
     scan_ms = graph_ms(lambda: exclusive_bit_offsets(b_k), 5)
     del s_k, b_k, offs_k
-    work = dense_work(len(enc.block_bits), st.cfg.block_bytes,
-                      st.cfg.capacity_words, bits_t, n_words, st.tb)
-    k1_bound = bound(work["encode"])[0]
-    pack_bound = bound(work["pack"])[0]
-    enc_bound = k1_bound + pack_bound
-    dec_bound = bound(work["dense_decode"])[0]
+    nb = len(enc.block_bits)
+    work = {c: dense_work(nb, bb, c, bits_t, n_words, st.tb)
+            for c in (128, 256)}
+    k1_bound = {c: bound(work[c]["encode"])[0] for c in (128, 256)}
+    pack_bound = bound(work[cap]["pack"])[0]
+    enc_bound = bound(work[cap]["encode"])[0] + pack_bound
+    dec_bound = bound(work[cap]["dense_decode"])[0]
+    del st, w_k
     gb = data.size / 1e9
-    emit({"phase": "main", "bytes": int(data.size), "blocks": len(enc.block_bits),
+    emit({"phase": "main", "bytes": int(data.size), "blocks": nb,
+          "sampled": trace.sampled, "rebuilt": trace.rebuilt,
+          "capacities_tried": trace.capacities_tried,
+          "chunks": trace.chunks, "k1_launches": launches["encode"],
           "total_bits": enc.total_bits, "bits_per_byte": enc.total_bits / data.size,
+          "final_book_est_bpb": enc.codebook.est_bpb,
+          "exact_book_est_bpb": exact.est_bpb,
+          "final_book_is_exact": bool(np.array_equal(enc.codebook.lengths,
+                                                     exact.lengths)),
           "codebook_max_len": enc.codebook.max_len,
           "golden_bit_exact": True, "roundtrip_exact": True,
           "decode_range": [r0, r1], "decode_range_exact": True,
+          "decode_range_bit_shift": int(starts[b0] & 31),
+          "decode_range_golden_decoder": True,
           "launches": launches, "plain_calls_on_cuda": plain_calls,
           "golden_encode_s": golden_s,
           "encode_e2e_s": enc_s, "decode_e2e_s": dec_s,
@@ -624,19 +898,26 @@ def phase_main(card: str, data: np.ndarray) -> dict:
           "encode_kernels_GBps": gb / (enc_ms / 1e3),
           "decode_kernel_GBps": gb / (dec_ms / 1e3),
           "encode_kernels_bound_ms": enc_bound,
-          "encode_kernel_ms": k1_ms,
-          "encode_kernel_bytes": work["encode"][0],
-          "encode_kernel_bound_ms": k1_bound,
-          "encode_kernel_bound_share": k1_bound / k1_ms,
-          "pack_kernel_ms": pack_ms, "pack_kernel_bytes": work["pack"][0],
+          "encode_kernel_capacity_words": cap,
+          "encode_kernel_ms": k1[cap],
+          "encode_kernel_bytes": work[cap]["encode"][0],
+          "encode_kernel_bound_ms": k1_bound[cap],
+          "encode_kernel_bound_share": k1_bound[cap] / k1[cap],
+          "encode_kernel_by_capacity": {
+              c: {"ms": k1[c], "bytes": work[c]["encode"][0],
+                  "bound_ms": k1_bound[c],
+                  "bound_share": k1_bound[c] / k1[c]} for c in (128, 256)},
+          "pack_kernel_ms": pack_ms, "pack_kernel_bytes": work[cap]["pack"][0],
           "pack_kernel_bound_ms": pack_bound,
           "pack_kernel_bound_share": pack_bound / pack_ms,
           "scan_ms": scan_ms,
-          "decode_kernel_bytes": work["dense_decode"][0],
+          "decode_kernel_bytes": work[cap]["dense_decode"][0],
           "decode_kernel_bound_ms": dec_bound,
           "decode_kernel_bound_share": dec_bound / dec_ms,
           "card": card})
-    return launches, enc, blob, {"encode": enc_s, "decode": dec_s}
+    emit(dense_breakdown(data, enc, trace, card))
+    emit(parent_flow(data, card))
+    return launches, enc, exact, {"encode": enc_s, "decode": dec_s}
 
 
 class WideStages:
@@ -1076,16 +1357,20 @@ def sharded_breakdown(codec, data: np.ndarray, single, card: str) -> dict:
         return out
 
     mesh, cfg = codec.mesh, codec.cfg
-    cap = cfg.capacity_words
     arr, nb = codec.prepare(data)
     d_blocks, d_valid = stage("h2d_input",
                               lambda: codec.shard_inputs(arr, nb))
     cb = stage("histogram_codebook",
                lambda: codec._codebook(d_blocks, d_valid))
-    streams, bits = stage("k1_all_shards", lambda: encode_phase1(
-        mesh, d_blocks, d_valid, cb, cap))
-    block_bits = stage("bits_d2h_and_checks", lambda: api.check_block_bits(
-        fetch(mesh, bits)[0], cfg))
+    sched = api._cap_schedule(cfg, api._kernel_mcl(cb), cb.est_bpb)
+    for cap in sched:
+        streams, bits = stage(f"k1_all_shards_cap{cap}", lambda: encode_phase1(
+            mesh, d_blocks, d_valid, cb, cap))
+        block_bits = stage(f"bits_d2h_and_checks_cap{cap}",
+                           lambda: api.check_block_bits(fetch(mesh, bits)[0],
+                                                        cfg))
+        if int(block_bits.max()) <= cap * 32:
+            break
     shard_bits, base = shard_bases(block_bits, mesh)
     slices, used = stage("pack_all_shards", lambda: pack_phase2(
         mesh, streams, bits, shard_bits, base))
@@ -1094,7 +1379,7 @@ def sharded_breakdown(codec, data: np.ndarray, single, card: str) -> dict:
         [flat[offs[s]: offs[s + 1]] for s in range(mesh.size)], base >> 5,
         used, cdiv(int(shard_bits.sum()), 32)))
     require(np.array_equal(stream, single.stream_words),
-            "breakdown: sharded stream != single-device stream")
+            "breakdown: sharded stream != ShardedCodec.encode's")
     del flat, slices, stream
 
     shard_ms = {"k1": [], "pack": [], "dense_decode": []}
@@ -1139,13 +1424,17 @@ def sharded_breakdown(codec, data: np.ndarray, single, card: str) -> dict:
         shard_ms["dense_decode"].append(cuda_ms(lambda: k_decode.decode_blocks(
             span, wb, sh, va, table, tb, bb), 3))
     return {"phase": "sharded_breakdown", "bytes": int(data.size),
-            "shards": mesh.size, "ms": ms, "shard_kernel_ms": shard_ms,
-            "card": card}
+            "shards": mesh.size, "capacity_words": cap, "ms": ms,
+            "shard_kernel_ms": shard_ms, "card": card}
 
 
-def phase_sharded(card: str, data: np.ndarray, single, dense_blob: bytes,
-                  wide_blob: bytes, single_walls: dict) -> dict:
-    from huffman_tpu_torch import container
+def phase_sharded(card: str, data: np.ndarray, exact, wide_blob: bytes,
+                  single_walls: dict) -> dict:
+    """The sharded codec on the main input.  Its histogram is exact, so its
+    codebook must be the exact one, and its dense stream and container
+    those of api.encode under that codebook (api.encode's own may come
+    from a sample that held)."""
+    from huffman_tpu_torch import api, container
     from huffman_tpu_torch.parallel.mesh import make_mesh
     from huffman_tpu_torch.parallel.pipeline import ShardedCodec
 
@@ -1172,11 +1461,16 @@ def phase_sharded(card: str, data: np.ndarray, single, dense_blob: bytes,
             f"a kernel ran on fewer than {SHARDS} shards: {launches}")
     require(not any(plain_calls.values()),
             f"a plain version ran on CUDA tensors: {plain_calls}")
+    require(np.array_equal(enc.codebook.lengths, exact.lengths),
+            "sharded codebook != exact codebook")
+    single = api.encode(data, codebook=enc.codebook, device="cuda")
     require(enc.total_bits == single.total_bits,
             f"sharded total_bits {enc.total_bits} != {single.total_bits}")
     require(np.array_equal(enc.stream_words, single.stream_words),
             "sharded stream words != single-device stream")
-    require(blob == dense_blob, "sharded container != single-device container")
+    require(blob == container.dumps(single),
+            "sharded container != single-device container")
+    del single
     require(np.array_equal(back, data), "sharded decode != input")
     require(wblob == wide_blob,
             "sharded wide container != single-device wide container")
@@ -1184,7 +1478,9 @@ def phase_sharded(card: str, data: np.ndarray, single, dense_blob: bytes,
     del enc2, back, wenc, wenc2, wback, blob, wblob
     emit({"phase": "sharded", "bytes": int(data.size), "shards": SHARDS,
           "devices": [str(d) for d in codec.mesh.devices],
-          "stream_equal_single": True, "container_equal_single": True,
+          "codebook_exact": True,
+          "stream_equal_single_same_book": True,
+          "container_equal_single_same_book": True,
           "wide_container_equal_single": True, "roundtrips_exact": True,
           "launches": launches, "plain_calls_on_cuda": plain_calls,
           "wall_s": walls, "single_device_wall_s": single_walls,
@@ -1265,10 +1561,12 @@ def worker(rank: int, world: int, port: int) -> int:
             f"a kernel ran on fewer than 2 shards: {launches}")
     require(not any(c.n for c in plain.values()),
             "a plain version ran on CUDA tensors")
-    single = api.encode(data, device="cuda")
+    require(np.array_equal(enc.codebook.lengths, api.build_codebook(
+        data, device="cuda").lengths), "sharded codebook != exact codebook")
+    single = api.encode(data, codebook=enc.codebook, device="cuda")
     require(enc.total_bits == single.total_bits and
             np.array_equal(enc.stream_words, single.stream_words),
-            "sharded stream != single-device stream")
+            "sharded stream != single-device stream under its codebook")
     require(container.dumps(enc) == container.dumps(single),
             "sharded container != single-device container")
     require(np.array_equal(back, data), "sharded decode != input")
@@ -1322,13 +1620,14 @@ def main() -> int:
     data = testdata.entropy_stream(MAIN_BYTES, seed=0)
     emit({"phase": "datagen", "bytes": MAIN_BYTES,
           "seconds": time.perf_counter() - t0})
-    launches, single, dense_blob, walls = phase_main(card, data)
+    launches, single, exact, walls = phase_main(card, data)
     wide_launches, wide_blob, wide_walls = phase_wide_main(
         card, data, single.total_bits)
     launches.update(wide_launches)
     walls.update(wide_walls)
-    phase_sharded(card, data, single, dense_blob, wide_blob, walls)
-    del data, single, dense_blob, wide_blob
+    del single
+    phase_sharded(card, data, exact, wide_blob, walls)
+    del data, wide_blob
     torch.cuda.empty_cache()
     phase_multiprocess(card)
 

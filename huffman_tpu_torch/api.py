@@ -1,18 +1,33 @@
 """Single-device codec API (counterpart of huffman_tpu/api.py, dense format).
 
-encode: bytes to the device -> histogram (device) -> codebook (host) ->
-K1 block encode (device) -> per-block bit counts to the host (miss and
-overflow checks, container) -> int64 offset scan (device) -> pack
-(device) -> stream words to the host.
+encode on a CUDA device takes the kernel path, the JAX package's driver:
+  - the codebook is given, a model's, or built from a device histogram:
+    of every SAMPLE_EVERY-th block only at SAMPLE_MIN_BYTES or more, the
+    sample gathered on the host, so that only it crosses before the
+    codebook exists;
+  - above CHUNK_BLOCKS blocks the input goes to the device chunk by chunk
+    (stage_chunks: a ring of pinned host buffers and a side stream), K1 of
+    each chunk running while the next one copies; smaller inputs go in one
+    copy;
+  - K1 runs at each capacity of _cap_schedule until one holds every
+    block: a narrow speculative capacity first where the codebook's
+    expected rate clears it, then the safe one, on the device-resident
+    input;
+  - a byte that K1 finds without a code (MISS_FLAG) makes a sampled
+    codebook be rebuilt from the exact histogram of the resident input,
+    and K1 runs again; with a given codebook it raises ValueError;
+  - the per-block bit counts go to the host (the checks, the total, the
+    container), then the int64 offset scan and pack at the capacity that
+    held, and the stream words to the host.
+Elsewhere encode makes one exact pass at cfg.capacity_words, as the JAX
+package does off the TPU; on the CPU the kernel wrappers run their plain
+versions.  _kernel_path is the gate (the CPU tests patch it).  Nothing
+detects a device on its own: every function takes `device`.
 decode: offset scan -> K4 decode of every block (device) -> bytes.
 
-Every function takes `device`.  On a CUDA device the stages launch the
-port's CUDA kernels; with device="cpu" the kernel wrappers run their plain
-PyTorch versions.  Nothing detects a device on its own.
-
-Left out against the JAX package, all Mosaic machinery: pow2 block
-bucketing, chunked host staging, the capacity and tree speculation with
-its patch overlay, and the sampled codebook (ROADMAP.md lists them).
+Left out against the JAX package, as Mosaic machinery (ROADMAP.md): the
+speculative merge tree with its patch overlay (K1 has no merge tree) and
+the pow2 block buckets, which only reuse compiles.
 """
 
 from __future__ import annotations
@@ -37,6 +52,19 @@ from .ops.scan import exclusive_bit_offsets
 if TYPE_CHECKING:
     from .models.base import CodebookModel
 
+# The kernel path's policies, as in the JAX package.  From SAMPLE_MIN_BYTES
+# on, the histogram reads every SAMPLE_EVERY-th block (a miss costs one
+# exact histogram and one more K1 pass); above CHUNK_BLOCKS blocks (16 MiB
+# at 1 KiB blocks) the input is staged CHUNK_BLOCKS blocks at a time.
+SAMPLE_MIN_BYTES = 4 * 1024 * 1024
+SAMPLE_EVERY = 16
+CHUNK_BLOCKS = 16384
+# Pinned host buffers of the staging ring: the host fills one while the
+# other's copy runs.  They come from PyTorch's caching host allocator,
+# which keeps freed pinned blocks for the next call, so the ring is not
+# cached here.
+PINNED_RING = 2
+
 
 @dataclasses.dataclass(frozen=True)
 class Encoded:
@@ -58,6 +86,18 @@ class Encoded:
     @property
     def ratio(self) -> float:
         return (self.total_bits / 8) / max(self.n_bytes, 1)
+
+
+@dataclasses.dataclass
+class EncodeTrace:
+    """How one encode ran: whether its codebook came from a sample, and was
+    rebuilt after a miss; K1's capacity (words) at each pass over the
+    blocks, in order, the last one the capacity that held; and the chunks
+    the input was staged in (0: one copy)."""
+    sampled: bool = False
+    rebuilt: bool = False
+    capacities_tried: list = dataclasses.field(default_factory=list)
+    chunks: int = 0
 
 
 def _as_u8(data) -> np.ndarray:
@@ -102,8 +142,57 @@ def device_blocks(arr: np.ndarray, cfg: CodecConfig, device: torch.device):
     return device_rows(arr, cfg.num_blocks(arr.size), cfg.block_bytes, device)
 
 
+def stage_chunks(arr: np.ndarray, rows: torch.Tensor, chunk_bytes: int):
+    """Copy arr into the flat uint8 buffer `rows` (zero past arr),
+    chunk_bytes at a time, yielding each chunk's range [lo, hi) of rows
+    once the current stream may read it.
+
+    On a CUDA device each chunk goes through one of PINNED_RING pinned
+    host buffers and is copied on a side stream: the caller's work on
+    chunk i, enqueued on the current stream behind an event, overlaps the
+    host's copy of chunk i + 1 into the next buffer and that buffer's
+    copy to the device.  A buffer is refilled only once its last copy has
+    completed.  On the CPU the copies are plain, and no CUDA call is made.
+    """
+    n, total = arr.size, rows.numel()
+    spans = [(lo, min(lo + chunk_bytes, total))
+             for lo in range(0, total, chunk_bytes)]
+    if rows.device.type != "cuda":
+        for lo, hi in spans:
+            if lo < n:
+                rows[lo: min(hi, n)].copy_(
+                    _from_numpy(arr[lo: min(hi, n)], rows.device))
+            rows[max(lo, n): hi].zero_()
+            yield lo, hi
+        return
+    compute = torch.cuda.current_stream(rows.device)
+    side = torch.cuda.Stream(rows.device)
+    side.wait_stream(compute)           # rows was allocated on `compute`
+    rows.record_stream(side)            # and is written on `side`
+    ring = [torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=True)
+            for _ in range(PINNED_RING)]
+    copied = [None] * PINNED_RING
+    for i, (lo, hi) in enumerate(spans):
+        slot = i % PINNED_RING
+        if copied[slot] is not None:
+            copied[slot].synchronize()
+        with torch.cuda.stream(side):
+            if lo < n:
+                buf = ring[slot][: min(hi, n) - lo]
+                buf.copy_(_from_numpy(arr[lo: min(hi, n)],
+                                      torch.device("cpu")))
+                rows[lo: min(hi, n)].copy_(buf, non_blocking=True)
+            rows[max(lo, n): hi].zero_()
+            copied[slot] = torch.cuda.Event()
+            copied[slot].record(side)
+        compute.wait_event(copied[slot])
+        yield lo, hi
+
+
 def codebook_tensors(cb: Codebook, device: torch.device):
     """The kernels' (256,) int32 codes (uint32 bit patterns) and lengths."""
+    if cb.max_len > 24:
+        raise ValueError(f"codebook has {cb.max_len}-bit codes; at most 24")
     codes = _from_numpy(np.ascontiguousarray(cb.codes, np.uint32)
                         .view(np.int32), device)
     return codes, _from_numpy(np.ascontiguousarray(cb.lengths, np.int32),
@@ -116,13 +205,72 @@ def _codebook_for(blocks: torch.Tensor, n: int, cfg: CodecConfig) -> Codebook:
                                           cfg.narrow_tol)
 
 
-def build_codebook(data, cfg: CodecConfig = DEFAULT_CONFIG,
-                   device="cuda") -> Codebook:
+def sample_rows(arr: np.ndarray, cfg: CodecConfig, every: int) -> np.ndarray:
+    """The bytes of blocks 0, every, 2 * every, ... of arr, in order, as
+    one host array.  Only the last block can be partial, so these are the
+    first valid[::every].sum() bytes of the sampled (zero-padded) rows."""
+    bb = cfg.block_bytes
+    full = arr.size // bb
+    rows = arr[: full * bb].reshape(full, bb)[::every]
+    if arr.size > full * bb and full % every == 0:
+        return np.concatenate([rows.reshape(-1), arr[full * bb:]])
+    return np.ascontiguousarray(rows).reshape(-1)
+
+
+def build_codebook(data, cfg: CodecConfig = DEFAULT_CONFIG, device="cuda",
+                   sample_every: int = 1) -> Codebook:
     """Histogram on `device` + host canonical codebook, with the
-    cfg.narrow_tol cap policy of the JAX package."""
+    cfg.narrow_tol cap policy of the JAX package.  With sample_every k > 1
+    only every k-th block is counted (sample_rows, gathered on the host):
+    the codebook may then lack codes for bytes outside the sample, which
+    K1 flags."""
     arr = _as_u8(data)
-    blocks, _ = device_blocks(arr, cfg, torch.device(device))
+    device = torch.device(device)
+    if sample_every > 1:
+        sample = _from_numpy(sample_rows(arr, cfg, sample_every), device)
+        return _codebook_for(sample, sample.numel(), cfg)
+    blocks, _ = device_blocks(arr, cfg, device)
     return _codebook_for(blocks, arr.size, cfg)
+
+
+def _kernel_path(device: torch.device) -> bool:
+    """Whether encode takes the kernel path (sampled codebook, capacity
+    schedule, chunked staging): on a CUDA device.  The JAX package's
+    _pallas_ok; the CPU tests patch it."""
+    return device.type == "cuda"
+
+
+def _kernel_mcl(cb: Codebook) -> int:
+    """The codebook's longest code, rounded up to 4, 8, 12, 16 (the JAX
+    package's buckets) or 24 (the port's longest codes).  It bounds a
+    block's bits, and with them the safe capacity (_cap_schedule)."""
+    actual = int(np.max(cb.lengths))
+    for b in (4, 8, 12, 16):
+        if actual <= b:
+            return b
+    return 24
+
+
+def _cap_schedule(cfg: CodecConfig, kmcl: int,
+                  est_bpb: float | None) -> list[int]:
+    """K1's capacities (words) to try, narrowest first.
+
+    The last is safe: cfg.capacity_words, or less where codes of at most
+    kmcl bits bound a block below it.  A speculative capacity of
+    cfg.spec_bits_per_byte bits a byte goes first when the codebook's
+    expected rate (Codebook.est_bpb) clears it by 0.75 bits a byte; encode
+    goes on to the safe one if some block's exact bit count exceeds it.
+    The JAX package rounds both up to its 128-word lanes and the port does
+    not, so the two agree where both are whole multiples of 128 words:
+    at 1 KiB blocks, the only size the JAX package runs this at, with
+    capacity and speculative rates that are multiples of 4 bits a byte.
+    """
+    safe = min(cfg.capacity_words, cdiv(kmcl * cfg.block_bytes, 32))
+    spec = cdiv(cfg.spec_bits_per_byte * cfg.block_bytes, 32)
+    if (cfg.spec_bits_per_byte > 0 and est_bpb is not None
+            and est_bpb <= cfg.spec_bits_per_byte - 0.75 and spec < safe):
+        return [spec, safe]
+    return [safe]
 
 
 def empty_encoded(cfg: CodecConfig, codebook: Codebook | None) -> Encoded:
@@ -131,14 +279,18 @@ def empty_encoded(cfg: CodecConfig, codebook: Codebook | None) -> Encoded:
                    codebook or Codebook.from_lengths(np.zeros(256)), 0, cfg)
 
 
-def check_block_bits(bits_raw: np.ndarray, cfg: CodecConfig) -> np.ndarray:
+def block_bits_of(bits_raw: np.ndarray) -> np.ndarray:
     """K1's raw per-block counts -> int32 bit counts, raising ValueError for
-    a byte with no code (MISS_FLAG) and OverflowError for a block past the
-    capacity (with cfg.check_overflow)."""
+    a byte with no code (MISS_FLAG)."""
     raw = bits_raw.view(np.uint32)
     if (raw & MISS_FLAG).any():
         raise ValueError("input contains symbols absent from the codebook")
-    block_bits = raw.astype(np.int32)
+    return raw.astype(np.int32)
+
+
+def check_overflow(block_bits: np.ndarray, cfg: CodecConfig) -> np.ndarray:
+    """block_bits, raising OverflowError for a block past cfg's capacity
+    (with cfg.check_overflow)."""
     cap = cfg.capacity_words
     if cfg.check_overflow and (block_bits > cap * 32).any():
         bad = int(np.argmax(block_bits > cap * 32))
@@ -148,6 +300,30 @@ def check_block_bits(bits_raw: np.ndarray, cfg: CodecConfig) -> np.ndarray:
     return block_bits
 
 
+def check_block_bits(bits_raw: np.ndarray, cfg: CodecConfig) -> np.ndarray:
+    """block_bits_of and check_overflow."""
+    return check_overflow(block_bits_of(bits_raw), cfg)
+
+
+def _encode_staged(arr: np.ndarray, rows: torch.Tensor, codes, lengths,
+                   valid: torch.Tensor, cap: int, block_bytes: int):
+    """K1 at capacity `cap` on each chunk of CHUNK_BLOCKS blocks as it
+    reaches the device (stage_chunks into `rows`), each chunk writing its
+    rows of one (NB, cap) output.  Returns the streams, the raw bit counts
+    and the number of chunks."""
+    nb = valid.numel()
+    blocks = rows.view(nb, block_bytes)
+    streams = torch.empty((nb, cap), dtype=torch.int32, device=rows.device)
+    bits = torch.empty(nb, dtype=torch.int32, device=rows.device)
+    chunks = 0
+    for lo, hi in stage_chunks(arr, rows, CHUNK_BLOCKS * block_bytes):
+        b0, b1 = lo // block_bytes, hi // block_bytes
+        k_encode.encode_blocks(blocks[b0:b1], codes, lengths, valid[b0:b1],
+                               cap, out=(streams[b0:b1], bits[b0:b1]))
+        chunks += 1
+    return streams, bits, chunks
+
+
 def encode(data, cfg: CodecConfig = DEFAULT_CONFIG,
            codebook: Codebook | None = None,
            model: "CodebookModel | None" = None, device="cuda") -> Encoded:
@@ -155,25 +331,73 @@ def encode(data, cfg: CodecConfig = DEFAULT_CONFIG,
 
     The codebook comes from, in this order: `codebook`, then
     `model.codebook_for(data)` (models.CodebookModel; FixedCodebook skips
-    the histogram), then the exact per-stream build.  A given or modelled
-    codebook that lacks a code for some input byte raises ValueError."""
+    the histogram), then the per-stream build (sampled on the kernel
+    path, rebuilt exactly on a miss).  A given or modelled codebook that
+    lacks a code for some input byte raises ValueError."""
+    return encode_traced(data, cfg, codebook, model, device)[0]
+
+
+def encode_traced(data, cfg: CodecConfig = DEFAULT_CONFIG,
+                  codebook: Codebook | None = None,
+                  model: "CodebookModel | None" = None,
+                  device="cuda") -> tuple[Encoded, EncodeTrace]:
+    """encode, and how it ran (EncodeTrace)."""
     arr = _as_u8(data)
     n = arr.size
+    trace = EncodeTrace()
     if n == 0:
-        return empty_encoded(cfg, codebook)
+        return empty_encoded(cfg, codebook), trace
     if codebook is None and model is not None:
         codebook = model.codebook_for(arr)
     device = torch.device(device)
-    blocks, valid = device_blocks(arr, cfg, device)
-    cb = codebook if codebook is not None else _codebook_for(blocks, n, cfg)
-    if cb.max_len > 24:
-        raise ValueError(f"codebook has {cb.max_len}-bit codes; at most 24")
-    codes, lengths = codebook_tensors(cb, device)
-    streams, bits_raw = k_encode.encode_blocks(blocks, codes, lengths, valid,
-                                               cfg.capacity_words)
-    # the one host sync of encode: the counts feed the checks, the total
-    # and the container
-    block_bits = check_block_bits(bits_raw.cpu().numpy(), cfg)
+    kernel_path = _kernel_path(device)
+    sampled = trace.sampled = (kernel_path and codebook is None
+                               and n >= SAMPLE_MIN_BYTES)
+    cb = (codebook if codebook is not None
+          else build_codebook(arr, cfg, device, SAMPLE_EVERY) if sampled
+          else None)
+    nb, bb = cfg.num_blocks(n), cfg.block_bytes
+    # staging needs the codebook first: an exact one is built from the
+    # whole input on the device
+    staged = kernel_path and cb is not None and nb > CHUNK_BLOCKS
+    if staged:
+        rows = torch.empty(nb * bb, dtype=torch.uint8, device=device)
+        blocks = rows.view(nb, bb)
+        valid = _from_numpy(valid_per_block(n, nb, bb), device)
+    else:
+        blocks, valid = device_blocks(arr, cfg, device)
+        if cb is None:
+            cb = _codebook_for(blocks, n, cfg)
+    while True:
+        codes, lengths = codebook_tensors(cb, device)
+        sched = (_cap_schedule(cfg, _kernel_mcl(cb), cb.est_bpb)
+                 if kernel_path else [cfg.capacity_words])
+        for cap in sched:
+            if staged and not trace.chunks:
+                streams, bits_raw, trace.chunks = _encode_staged(
+                    arr, rows, codes, lengths, valid, cap, bb)
+            else:
+                streams, bits_raw = k_encode.encode_blocks(
+                    blocks, codes, lengths, valid, cap)
+            trace.capacities_tried.append(cap)
+            # the host sync of a pass: the counts decide what comes next
+            # and feed the checks, the total and the container
+            raw = bits_raw.cpu().numpy()
+            missed = sampled and bool((raw.view(np.uint32) & MISS_FLAG).any())
+            if missed:
+                break
+            block_bits = block_bits_of(raw)
+            # counts are exact at any capacity: the speculative one held
+            # if no block needs more; the last one packs regardless
+            if int(block_bits.max()) <= cap * 32 or cap == sched[-1]:
+                break
+        if not missed:
+            break
+        # a byte was seen only outside the sample: rebuild the codebook
+        # from the exact histogram of the resident input and encode again
+        cb = _codebook_for(blocks, n, cfg)
+        sampled, trace.rebuilt = False, True
+    check_overflow(block_bits, cfg)
     total_bits = int(block_bits.astype(np.int64).sum())
     bits = bits_raw & BITS_MASK
     offsets = exclusive_bit_offsets(bits)
@@ -181,7 +405,7 @@ def encode(data, cfg: CodecConfig = DEFAULT_CONFIG,
                                 offsets.bit_shift, cdiv(total_bits, 32))
     return Encoded(stream_words=stream.cpu().numpy().view(np.uint32),
                    total_bits=total_bits, block_bits=block_bits,
-                   codebook=cb, n_bytes=n, config=cfg)
+                   codebook=cb, n_bytes=n, config=cfg), trace
 
 
 def encode_pipeline(blocks: torch.Tensor, codes: torch.Tensor,

@@ -3,8 +3,8 @@
 Counterpart of huffman_tpu/codebook.py: the same greedy Huffman lengths,
 the same package-merge length cap, the same canonical code assignment and
 the same narrow-cap policy, so both packages give identical `lengths` and
-`codes` for the same histogram.  The speculation estimates of the JAX
-codebook (est_bpb, est_w*_frac) are left out: the port does not speculate.
+`codes` for the same histogram, and the same speculation estimates
+(est_bpb and the window-overflow fractions est_w*_frac).
 """
 
 from __future__ import annotations
@@ -112,24 +112,66 @@ def canonical_codes(lengths: np.ndarray) -> np.ndarray:
     return codes
 
 
+def _window_overflow_fracs(freqs: np.ndarray,
+                           lengths: np.ndarray
+                           ) -> tuple[float, float, float]:
+    """(P[a 1 KiB block has a 4-byte window of more than 32 bits], the same
+    for 4- or 8-byte windows, P[a block has a 16-byte window of more than
+    64 bits]), exact for independent bytes: the code-length pmf convolved
+    to aligned 4-, 8- and 16-byte window sums, of which a block has 256,
+    128 and 64."""
+    f = np.asarray(freqs, dtype=np.float64)
+    tot = f.sum()
+    if tot <= 0:
+        return 0.0, 0.0, 0.0
+    pmf = np.zeros(int(lengths.max(initial=0)) + 1)
+    np.add.at(pmf, np.asarray(lengths, np.int64), f / tot)
+    w2 = np.convolve(pmf, pmf)
+    w4 = np.convolve(w2, w2)
+    p4 = float(w4[33:].sum())
+    w8 = np.convolve(w4, w4)
+    p8 = float(w8[33:].sum())
+    w16 = np.convolve(w8, w8)
+    p16 = float(w16[65:].sum())
+    return (float(1 - (1 - p4) ** 256),
+            float(1 - (1 - p4) ** 256 * (1 - p8) ** 128),
+            float(1 - (1 - p16) ** 64))
+
+
 @dataclasses.dataclass(frozen=True)
 class Codebook:
     """A canonical Huffman codebook over the byte alphabet.
 
     `codes[s]` is the right-aligned codeword of byte s and `lengths[s]` its
     bit length (0 = symbol absent).
+
+    The estimates come from the histogram the book was built from, and are
+    None for a book read back from its lengths (a container's), which
+    therefore never speculates.  est_bpb, the expected bits a byte, picks
+    api.encode's speculative capacity (api._cap_schedule).  The window
+    fractions (_window_overflow_fracs) steer only the JAX package's
+    speculative merge tree, which K1 does not have; they are kept equal to
+    the JAX package's.
     """
 
     codes: np.ndarray      # (256,) uint32, right-aligned values
     lengths: np.ndarray    # (256,) int32
     max_len: int
+    est_bpb: float | None = None
+    est_w4_frac: float | None = None
+    est_w8_frac: float | None = None
+    est_w16_frac: float | None = None
 
     @staticmethod
     def from_frequencies(freqs: np.ndarray, max_code_len: int = 16) -> "Codebook":
         lengths = huffman_code_lengths(freqs)
         if lengths.max(initial=0) > max_code_len:
             lengths = package_merge_lengths(freqs, max_code_len)
-        return Codebook.from_lengths(lengths)
+        cb = Codebook.from_lengths(lengths)
+        w4, w8, w16 = _window_overflow_fracs(freqs, lengths)
+        return dataclasses.replace(
+            cb, est_bpb=cb.expected_bits_per_byte(freqs),
+            est_w4_frac=w4, est_w8_frac=w8, est_w16_frac=w16)
 
     @staticmethod
     def from_frequencies_auto(freqs: np.ndarray, max_code_len: int = 16,

@@ -1,9 +1,8 @@
 """Runtime configuration of the codec (counterpart of huffman_tpu/config.py).
 
-Same knobs, order and defaults as the JAX package.  Two of them are
-accepted and checked but steer no kernel: `table_bits` (the decoder sizes
-its table from the codebook's own longest code) and `spec_bits_per_byte`
-(the port encodes at the guaranteed capacity and does not speculate).
+Same knobs, order and defaults as the JAX package.  One is accepted and
+checked but steers nothing: `table_bits` (the decoder sizes its table from
+the codebook's own longest code).
 """
 
 from __future__ import annotations
@@ -39,8 +38,10 @@ class CodecConfig:
         JAX package's Mosaic decoder reads it, the port's does not.
       narrow_tol: relative size tolerance for preferring a cap-4/cap-8
         codebook (Codebook.from_frequencies_auto); 0 disables.
-      spec_bits_per_byte: the JAX package's speculative per-block capacity
-        for its Mosaic encoder; the port does not speculate.
+      spec_bits_per_byte: speculative per-block capacity, in bits per
+        input byte, that encode tries first on the kernel path when the
+        codebook's expected rate is at least 0.75 below it
+        (api._cap_schedule); 0 disables speculation.
     """
 
     block_bytes: int = 1024

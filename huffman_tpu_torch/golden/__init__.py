@@ -1,4 +1,5 @@
-"""Golden CPU encoder: the C++ oracle, loaded with ctypes.
+"""Golden CPU codec: the C++ oracle (encoder, decoder, byte histogram),
+loaded with ctypes.
 
 cpu_codec.cpp beside this file is the port's own copy of the JAX
 package's golden codec; g++ builds it at first use into the port's build
@@ -54,6 +55,12 @@ def load_library() -> ctypes.CDLL:
         lib.huff_encode_bytes.argtypes = [
             u8p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint32),
             ctypes.POINTER(ctypes.c_int32), u8p]
+        lib.huff_decode_bytes.restype = ctypes.c_uint64
+        lib.huff_decode_bytes.argtypes = [
+            u8p, ctypes.c_uint64, u8p, u8p, ctypes.c_int, u8p, ctypes.c_uint64]
+        lib.byte_histogram.restype = None
+        lib.byte_histogram.argtypes = [u8p, ctypes.c_uint64,
+                                       ctypes.POINTER(ctypes.c_uint64)]
         _lib = lib
         return lib
 
@@ -83,4 +90,37 @@ def encode(data, cb: Codebook) -> tuple[np.ndarray, int]:
     return out[: (total_bits + 7) // 8].copy(), int(total_bits)
 
 
-__all__ = ["encode", "load_library", "numpy_codec", "SOURCE"]
+def decode(stream, n_out: int, cb: Codebook, bit_offset: int = 0) -> np.ndarray:
+    """Golden decode of n_out symbols of an MSB-first byte stream, from bit
+    `bit_offset` on.  Raises ValueError where the stream reaches a prefix
+    that no code has."""
+    if n_out == 0:
+        return np.zeros(0, dtype=np.uint8)
+    lib = load_library()
+    syms, lens = cb.decode_table()
+    # the decoder peeks 4 bytes past its cursor: 8 bytes of slack
+    s = np.concatenate([_as_u8(stream), np.zeros(8, dtype=np.uint8)])
+    out = np.zeros(n_out, dtype=np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    end = lib.huff_decode_bytes(
+        s.ctypes.data_as(u8p), bit_offset, syms.ctypes.data_as(u8p),
+        lens.ctypes.data_as(u8p), max(int(cb.max_len), 1),
+        out.ctypes.data_as(u8p), n_out)
+    if end == np.iinfo(np.uint64).max:
+        raise ValueError("corrupt stream (golden decoder)")
+    return out
+
+
+def histogram(data) -> np.ndarray:
+    """Golden 256-bin byte histogram (int64)."""
+    arr = _as_u8(data)
+    lib = load_library()
+    hist = np.zeros(256, dtype=np.uint64)
+    lib.byte_histogram(arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                       arr.size,
+                       hist.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+    return hist.astype(np.int64)
+
+
+__all__ = ["encode", "decode", "histogram", "load_library", "numpy_codec",
+           "SOURCE"]

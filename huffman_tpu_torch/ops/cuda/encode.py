@@ -19,12 +19,20 @@ MAX_BLOCK_BYTES = (2**31 - 1) // 24 // 4 * 4
 
 def encode_blocks(byte_blocks: torch.Tensor, codes: torch.Tensor,
                   lengths: torch.Tensor, valid_bytes: torch.Tensor,
-                  capacity_words: int):
+                  capacity_words: int, out=None):
     """ops.encode.encode_blocks on the card; same arguments and results.
-    Code lengths must lie in [0, 24] (api.encode checks on the host)."""
+    Code lengths must lie in [0, 24] (api.encode checks on the host).
+    With out = (streams, bits), contiguous (NB, capacity_words) and (NB,)
+    int32 tensors (streams at a 16-byte aligned address), the results are
+    written there: a chunk of a larger encode writes its rows in place."""
     if byte_blocks.device.type == "cpu":
-        return plain.encode_blocks(byte_blocks, codes, lengths, valid_bytes,
-                                   capacity_words)
+        res = plain.encode_blocks(byte_blocks, codes, lengths, valid_bytes,
+                                  capacity_words)
+        if out is None:
+            return res
+        out[0].copy_(res[0])
+        out[1].copy_(res[1])
+        return out
     dev = byte_blocks.device
     if dev.type != "cuda":
         raise ValueError(f"encode_blocks: unsupported device {dev}")
@@ -39,8 +47,15 @@ def encode_blocks(byte_blocks: torch.Tensor, codes: torch.Tensor,
     _build.require(codes, "codes", torch.int32, (256,), dev)
     _build.require(lengths, "lengths", torch.int32, (256,), dev)
     _build.require(valid_bytes, "valid_bytes", torch.int32, (nb,), dev)
-    streams = torch.empty((nb, cap), dtype=torch.int32, device=dev)
-    bits = torch.empty(nb, dtype=torch.int32, device=dev)
+    if out is None:
+        streams = torch.empty((nb, cap), dtype=torch.int32, device=dev)
+        bits = torch.empty(nb, dtype=torch.int32, device=dev)
+    else:
+        streams, bits = out
+        _build.require(streams, "out streams", torch.int32, (nb, cap), dev)
+        _build.require(bits, "out bits", torch.int32, (nb,), dev)
+        if streams.data_ptr() % 16:
+            raise ValueError("out streams: want a 16-byte aligned address")
     if nb == 0:
         return streams, bits
     lib = _build.load_library()

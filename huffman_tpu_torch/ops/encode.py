@@ -44,6 +44,12 @@ def encode_blocks(byte_blocks: torch.Tensor, codes: torch.Tensor,
                        capacity_words)
 
 
+def overflowed(block_bits: torch.Tensor, capacity_words: int) -> torch.Tensor:
+    """0-d bool tensor: whether any block needs more than capacity_words
+    words (block_bits with flags masked off)."""
+    return torch.any(block_bits > capacity_words * 32)
+
+
 def encode_rows(byte_blocks: torch.Tensor, codes: torch.Tensor,
                 lengths: torch.Tensor, valid_bytes: torch.Tensor,
                 capacity_words: int):

@@ -9,6 +9,7 @@ to it bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import Counter, bitio
@@ -52,3 +53,23 @@ def pack_blocks(streams: torch.Tensor, block_bits: torch.Tensor,
     out = torch.zeros(n_words + 1, dtype=torch.int64, device=x.device)
     out.index_add_(0, dest.clamp(max=n_words).reshape(-1), contrib.reshape(-1))
     return bitio.to_i32(out[:n_words])
+
+
+def pack_reference(packed_blocks, block_bits) -> tuple:
+    """Numpy twin of the pack, a word at a time (slow, for tests): the
+    (NB * CAP + 1,) uint32 dense stream of the (NB, CAP) block streams, and
+    the total bits."""
+    import numpy as np
+    nb, cap = packed_blocks.shape
+    x = np.asarray(packed_blocks).astype(np.uint32).astype(np.uint64)
+    bits = np.asarray(block_bits, dtype=np.int64)
+    out = np.zeros(nb * cap + 1, dtype=np.uint64)
+    cursor = 0
+    for b in range(nb):
+        base, sh = cursor >> 5, cursor & 31
+        for j in range((int(bits[b]) + 31) // 32):
+            v = int(x[b, j]) << (32 - sh)
+            out[base + j] |= (v >> 32) & 0xFFFFFFFF
+            out[base + j + 1] |= v & 0xFFFFFFFF
+        cursor += int(bits[b])
+    return out.astype(np.uint32), int(bits.sum())

@@ -35,3 +35,15 @@ def exclusive_bit_offsets(block_bits: torch.Tensor,
     return BitOffsets(word_base=starts >> 5,
                       bit_shift=(starts & 31).to(torch.int32),
                       total_bits=total, total_words=(total + 31) >> 5)
+
+
+def total_bits_host(offsets: BitOffsets) -> int:
+    """The grand total of bits as a Python int (one host sync)."""
+    return int(offsets.total_bits)
+
+
+def block_bit_ends(lengths_per_symbol: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 cumsum of per-symbol code lengths along the last
+    axis: each symbol's end bit within its block."""
+    return torch.cumsum(lengths_per_symbol.to(torch.int32), dim=-1,
+                        dtype=torch.int32)

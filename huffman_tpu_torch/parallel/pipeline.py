@@ -19,11 +19,16 @@ api.encode's stream words, total and (trimmed to the input's blocks)
 block_bits, so the containers are byte-identical; encode_wide gives
 wide.encode_wide's container, the mesh's padding tiles dropped.
 
+On CUDA devices the dense encode runs api.encode's capacity schedule: K1
+at a speculative capacity first where the codebook allows it, again at the
+safe one if a block needs more.  Its histogram is exact, as in the JAX
+package, which samples only on one device.
+
 Left out against the JAX package, all Mosaic machinery whose output equals
-the exact path's (ROADMAP.md): the speculative capacity and trees with
-their patch overlays, the host pack plans and their buckets, and the
-power-of-two tile bucketing; and encode_step, the one-shot XLA step of its
-multichip dry run, which computes what the two phases here compute.
+the exact path's (ROADMAP.md): the speculative trees with their patch
+overlays, the host pack plans and their buckets, and the power-of-two tile
+bucketing; and encode_step, the one-shot XLA step of its multichip dry
+run, which computes what the two phases here compute.
 """
 
 from __future__ import annotations
@@ -149,9 +154,12 @@ class ShardedCodec:
 
         Phase 1 runs K1 on every shard; one host copy per shard then brings
         back the bit counts, for the miss and overflow checks, the shard
-        bases and the total.  Phase 2 packs each shard at its global bit
-        phase, and assemble_dense ORs one seam word per boundary.  A given
-        codebook that lacks a code for some input byte raises ValueError.
+        bases and the total.  On the kernel path phase 1 runs at each
+        capacity of api._cap_schedule until one holds every block, the
+        decision the same in every process, which all hold every count.
+        Phase 2 packs each shard at its global bit phase, and
+        assemble_dense ORs one seam word per boundary.  A given codebook
+        that lacks a code for some input byte raises ValueError.
         """
         cfg = self.cfg
         arr, nb = self.prepare(data)
@@ -161,11 +169,16 @@ class ShardedCodec:
         d_blocks, d_valid = self.shard_inputs(arr, nb)
         cb = codebook if codebook is not None else self._codebook(d_blocks,
                                                                   d_valid)
-        if cb.max_len > 24:
-            raise ValueError(f"codebook has {cb.max_len}-bit codes; at most 24")
-        streams, bits_raw = encode_phase1(self.mesh, d_blocks, d_valid, cb,
-                                          cfg.capacity_words)
-        block_bits = api.check_block_bits(fetch(self.mesh, bits_raw)[0], cfg)
+        sched = (api._cap_schedule(cfg, api._kernel_mcl(cb), cb.est_bpb)
+                 if api._kernel_path(self.mesh.devices[0])
+                 else [cfg.capacity_words])
+        for cap in sched:
+            streams, bits_raw = encode_phase1(self.mesh, d_blocks, d_valid,
+                                              cb, cap)
+            block_bits = api.block_bits_of(fetch(self.mesh, bits_raw)[0])
+            if int(block_bits.max()) <= cap * 32 or cap == sched[-1]:
+                break
+        api.check_overflow(block_bits, cfg)
         shard_bits, shard_base = shard_bases(block_bits, self.mesh)
         total_bits = int(shard_bits.sum())
         slices, used = pack_phase2(self.mesh, streams, bits_raw, shard_bits,
