@@ -10,8 +10,14 @@ Phases, each printing one JSON line:
   3. kernels - each dense kernel (K1 encode, pack, K4 decode) against its
                plain PyTorch version on the card, exactly: at the main path's
                shapes (64 MiB, 65536 blocks, K1 at the capacity api.encode
-               keeps for that input) with times of both; then a uniform 256-symbol input (every
-               block exactly at capacity), a 14-bit codebook, a 20-bit one
+               keeps for that input) with times of both; the byte
+               histogram against its plain version and torch.bincount on
+               64 MiB of the main profile, uniform bytes and one repeated
+               byte (times of all three, bincount's as library_ms), n_valid
+               tails and start offsets of 1-15 bytes, 32-bit words, and
+               5 GiB of one byte (a count past 2^32); then a uniform
+               256-symbol input (every block exactly at capacity), a
+               14-bit codebook, a 20-bit one
                (decode table in device memory), pack alone on blocks that
                spill into their neighbours (at 256 and 128 words), pack
                alone on tiny blocks
@@ -41,11 +47,13 @@ Phases, each printing one JSON line:
                loads -> api.decode equal to the input, decode_range from a
                block at a nonzero bit shift equal to the input and to the
                golden decoder; launch counts read around that run; how the
-               driver ran (sampled, rebuilt, capacities tried, chunks) and
+               driver ran (sampled, rebuilt, capacities tried, chunks), the
+               histogram's launches (the sample's and a rebuild's) and
                the final codebook's bits/byte beside the exact one's;
                end-to-end and kernel-only rates; K1's 1 GiB time at 128 and
                256 words, pack's and K4's beside their bounds, and the
-               offset scan's.  Then dense_breakdown (each stage of the
+               offset scan's, the histogram's beside torch.bincount's.
+               Then dense_breakdown (each stage of the
                driver, the staging ring against the parent's pageable copy)
                and main_parent_flow (api.encode as the parent ran it, with
                no sampling, chunks or speculation, in turns with the
@@ -62,7 +70,7 @@ Phases, each printing one JSON line:
   6. wide_main - the wide path on the same 1 GiB: wide.encode_wide ->
                container dumps_wide -> loads_wide -> wide.decode_wide equal
                to the input, decode_wide_range across tiles; launch counts
-               read around that run; the first 16 tiles and the last one
+               read around that run (one histogram); the first 16 tiles and the last one
                equal to the specification's encoder; end-to-end and
                kernel-only rates, K5's, the schedule with K7's and K8's
                1 GiB times beside their bounds, a per-stage wall
@@ -72,7 +80,8 @@ Phases, each printing one JSON line:
                api.encode's stream and container under that codebook, the
                wide encode equal to phase 6's container, both
                decodes equal to the input; launch counts read around that run
-               (every kernel at least once per shard); walls beside the
+               (every kernel at least once per shard, the histogram once a
+               shard in each encode); walls beside the
                single-device walls of phases 4 and 6, and a per-stage
                breakdown of the dense encode and decode with each shard's
                kernel times.  Four shards on one card show what sharding
@@ -90,7 +99,8 @@ error against its plain version, its time (the device time of launches
 captured in a CUDA graph: graph_ms), the plain version's, and its bound:
 the larger of the bytes it must move at 3.35 TB/s and its operations at
 67 T/s, all at the 64 MiB kernel shapes, K1 at the capacity api.encode
-keeps there), the card's nvidia-smi line, and the result line.
+keeps there; torch.bincount's time as the histogram's library_ms), the
+card's nvidia-smi line, and the result line.
 Any mismatch raises and the script exits non-zero, as it does when no
 CUDA device is available.  Imports nothing of JAX.
 """
@@ -400,6 +410,87 @@ def compare_pack_tiny(card: str, errs: dict) -> dict:
             "stream_words": words, "max_abs_err": {"pack": e}, "card": card}
 
 
+def hist_work(n: int) -> tuple:
+    """(bytes, operations) of the histogram of n bytes: each byte read once
+    and the 256 int64 bins written once; one count a byte."""
+    return n + 256 * 8, n
+
+
+def compare_histogram(card: str, main: np.ndarray, errs: dict, times: dict,
+                      library: dict) -> dict:
+    """The histogram kernel against its plain version (ops.histogram
+    .histogram_plain, a scatter-add of ones) and torch.bincount on the same
+    device bytes, exactly: the main profile at the kernel shapes (64 MiB),
+    uniform bytes, one repeated byte, n_valid tails of 1-15 bytes, start
+    offsets 1-15, the bytes as 32-bit words, and 5 GiB of one byte, whose
+    count passes 2^32 (the plain version on 1 GiB slices, summed).  Times
+    at 64 MiB: the kernel by graph replay, the plain version and bincount
+    (library_ms) from events, since bincount syncs the host to size its
+    bins and cannot be captured in a graph."""
+    from huffman_tpu_torch.ops import histogram as hist_ops
+    from huffman_tpu_torch.ops.cuda import histogram as k_hist
+
+    dev = torch.device("cuda")
+    err = 0
+    cases = 0
+
+    def check(name, kern, data, n):
+        nonlocal err, cases
+        want = torch.bincount(data[:n], minlength=256)
+        e = max(max_abs_err(kern, want),
+                max_abs_err(hist_ops.histogram_plain(data, n), want))
+        require(e == 0, f"histogram {name}: kernel, plain and bincount "
+                        f"differ (max err {e})")
+        err, cases = max(err, e), cases + 1
+
+    d_main = torch.from_numpy(main).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    inputs = {"main_profile": d_main,
+              "uniform256": torch.randint(0, 256, (KERNEL_BYTES,),
+                                          generator=g, dtype=torch.uint8,
+                                          device=dev),
+              "one_byte": torch.full((KERNEL_BYTES,), 45, dtype=torch.uint8,
+                                     device=dev)}
+    ms = {}
+    for name, d in inputs.items():
+        check(name, hist_ops.histogram(d), d, d.numel())
+        ms[name] = graph_ms(lambda: k_hist.histogram(d, d.numel()), 20)
+    head = d_main[: 1 << 20]
+    for t in range(1, 16):
+        n = (1 << 16) + t
+        check(f"tail{t}", hist_ops.histogram(head, n), head, n)
+        check(f"offset{t}", hist_ops.histogram(head[t:]), head[t:],
+              head.numel() - t)
+        check(f"offset{t}_tail{t}", hist_ops.histogram(head[t:], n - 16),
+              head[t:], n - 16)
+    check("short", hist_ops.histogram(head[3:10]), head[3:10], 7)
+    words = d_main.view(torch.int32)
+    for n in (d_main.numel(), d_main.numel() - 5, 4097):
+        check(f"words_n{n}", hist_ops.histogram(words, n), d_main, n)
+    big = torch.full((5 << 30,), 201, dtype=torch.uint8, device=dev)
+    kern = hist_ops.histogram(big)
+    plain = sum(hist_ops.histogram_plain(big[i: i + (1 << 30)], 1 << 30)
+                for i in range(0, big.numel(), 1 << 30))
+    want = torch.bincount(big, minlength=256)
+    e = max(max_abs_err(kern, want), max_abs_err(plain, want))
+    require(e == 0 and int(kern[201]) == 5 << 30,
+            f"histogram 5 GiB: {int(kern[201])} != {5 << 30} (err {e})")
+    del big, plain, want
+    torch.cuda.empty_cache()
+    errs["histogram"] = max(err, e)
+    n = d_main.numel()
+    plain_ms = cuda_ms(lambda: hist_ops.histogram_plain(d_main, n), 2)
+    library["histogram"] = cuda_ms(
+        lambda: torch.bincount(d_main, minlength=256), 5)
+    work = hist_work(n)
+    times["histogram"] = (ms["main_profile"], plain_ms, work)
+    return {"phase": "kernels", "case": "histogram", "bytes": n,
+            "cases_checked": cases + 1, "max_abs_err": errs["histogram"],
+            "count_5GiB": 5 << 30, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bincount_ms": library["histogram"], "bytes_moved": work[0],
+            "bound": bound(work), "card": card}
+
+
 def edge_data(n: int = 64 * 300 + 37):
     """Small explicit-codebook cases: with 64-byte blocks, a partial warp of
     16 lanes; a final partial block, a 4-byte group that is exactly 32
@@ -582,7 +673,7 @@ def driver_cases(card: str) -> None:
           "card": card})
 
 
-def phase_kernels(card: str, errs: dict, times: dict) -> None:
+def phase_kernels(card: str, errs: dict, times: dict, library: dict) -> None:
     from huffman_tpu_torch import api
     from huffman_tpu_torch.codebook import Codebook
     from huffman_tpu_torch.config import CodecConfig
@@ -597,6 +688,7 @@ def phase_kernels(card: str, errs: dict, times: dict) -> None:
                          cap=tr.capacities_tried[-1]))
 
     uni = testdata.uniform_random(16 << 20, seed=2)
+    emit(compare_histogram(card, main, errs, times, library))
     rec = compare_kernels("uniform256_at_capacity", uni, cfg, card, errs,
                           codebook=Codebook.from_lengths(np.full(256, 8)))
     require(rec["total_bits"] == uni.size * 8, "uniform: not 8 bits/byte")
@@ -769,13 +861,16 @@ def phase_main(card: str, data: np.ndarray) -> dict:
                                                       words_to_packed_bytes)
     from huffman_tpu_torch.ops import decode as p_decode
     from huffman_tpu_torch.ops import encode as p_encode
+    from huffman_tpu_torch.ops import histogram as p_hist
     from huffman_tpu_torch.ops import pack as p_pack
     from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
     from huffman_tpu_torch.ops.cuda import encode as k_encode
+    from huffman_tpu_torch.ops.cuda import histogram as k_hist
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
 
     counters = [k_encode.launches, k_pack.launches, k_decode.launches,
-                p_encode.cuda_calls, p_pack.cuda_calls, p_decode.cuda_calls]
+                k_hist.launches, p_encode.cuda_calls, p_pack.cuda_calls,
+                p_decode.cuda_calls, p_hist.cuda_calls]
     bb = 1024
     # decode_range from a block that starts at a nonzero bit shift is
     # chosen after the run, from its block bits; 6 KiB past it
@@ -802,10 +897,12 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     part = api.decode_range(enc2, r0, r1, device="cuda")
     torch.cuda.synchronize()
     launches = {"encode": k_encode.launches.n, "pack": k_pack.launches.n,
-                "dense_decode": k_decode.launches.n}
+                "dense_decode": k_decode.launches.n,
+                "histogram": k_hist.launches.n}
     plain_calls = {"encode": p_encode.cuda_calls.n,
                    "pack": p_pack.cuda_calls.n,
-                   "dense_decode": p_decode.cuda_calls.n}
+                   "dense_decode": p_decode.cuda_calls.n,
+                   "histogram": p_hist.cuda_calls.n}
     # --- end of the main path ---
 
     require(all(v > 0 for v in launches.values()),
@@ -815,6 +912,9 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     require(launches["encode"] == max(trace.chunks, 1)
             + len(trace.capacities_tried) - 1,
             f"K1 launches {launches['encode']} for {trace}")
+    # the (sampled) codebook's histogram, and the exact one of a rebuild
+    require(launches["histogram"] == 1 + trace.rebuilt,
+            f"histogram launches {launches['histogram']} for {trace}")
     t0 = time.perf_counter()
     ref_bytes, ref_bits = golden.encode(data, enc.codebook)
     golden_s = time.perf_counter() - t0
@@ -867,6 +967,14 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     pack_ms = graph_ms(lambda: st.pack(k_pack, s_k, b_k, offs_k, n_words), 5)
     scan_ms = graph_ms(lambda: exclusive_bit_offsets(b_k), 5)
     del s_k, b_k, offs_k
+    # the histogram of the resident input, and torch.bincount's (events:
+    # it syncs the host)
+    flat = st.blocks.reshape(-1)
+    hist_ms = graph_ms(lambda: k_hist.histogram(flat, data.size), 5)
+    bincount_ms = cuda_ms(lambda: torch.bincount(flat[: data.size],
+                                                 minlength=256), 2)
+    hist_bound = bound(hist_work(data.size))[0]
+    del flat
     nb = len(enc.block_bits)
     work = {c: dense_work(nb, bb, c, bits_t, n_words, st.tb)
             for c in (128, 256)}
@@ -911,6 +1019,11 @@ def phase_main(card: str, data: np.ndarray) -> dict:
           "pack_kernel_bound_ms": pack_bound,
           "pack_kernel_bound_share": pack_bound / pack_ms,
           "scan_ms": scan_ms,
+          "histogram_kernel_ms": hist_ms,
+          "histogram_kernel_bytes": hist_work(data.size)[0],
+          "histogram_kernel_bound_ms": hist_bound,
+          "histogram_kernel_bound_share": hist_bound / hist_ms,
+          "histogram_bincount_ms": bincount_ms,
           "decode_kernel_bytes": work[cap]["dense_decode"][0],
           "decode_kernel_bound_ms": dec_bound,
           "decode_kernel_bound_share": dec_bound / dec_ms,
@@ -1186,13 +1299,16 @@ def wide_breakdown(data: np.ndarray, card: str) -> dict:
 def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
     from huffman_tpu_torch import container, wide
     from huffman_tpu_torch.golden.wide_codec import TILE_BYTES
+    from huffman_tpu_torch.ops import histogram as p_hist
     from huffman_tpu_torch.ops import wide as p_wide
+    from huffman_tpu_torch.ops.cuda import histogram as k_hist
     from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
     from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
     from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
 
     counters = [k_sub.launches, k_emit.schedule_launches, k_emit.launches,
-                k_wdec.launches, *p_wide.cuda_calls.values()]
+                k_wdec.launches, k_hist.launches, p_hist.cuda_calls,
+                *p_wide.cuda_calls.values()]
 
     # --- the wide path, with every count at 0 just before it ---
     for c in counters:
@@ -1217,14 +1333,18 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
     launches = {"wide_sub_encode": k_sub.launches.n,
                 "wide_schedule": k_emit.schedule_launches.n,
                 "wide_emit": k_emit.launches.n,
-                "wide_decode": k_wdec.launches.n}
-    plain_calls = {k: c.n for k, c in p_wide.cuda_calls.items()}
+                "wide_decode": k_wdec.launches.n,
+                "histogram": k_hist.launches.n}
+    plain_calls = {**{k: c.n for k, c in p_wide.cuda_calls.items()},
+                   "histogram": p_hist.cuda_calls.n}
     # --- end of the wide path ---
 
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the wide path never launched: {launches}")
     require(not any(plain_calls.values()),
             f"a plain version ran on CUDA tensors: {plain_calls}")
+    require(launches["histogram"] == 1,
+            f"wide histogram launches {launches['histogram']} != 1")
     require(np.array_equal(back, data), "wide container roundtrip != input")
     require(np.array_equal(part, data[r0:r1]), "decode_wide_range != input")
     nt = len(enc.tile_words)
@@ -1316,10 +1436,12 @@ def path_counters() -> tuple[dict, dict]:
     on CUDA tensors, by name."""
     from huffman_tpu_torch.ops import decode as p_decode
     from huffman_tpu_torch.ops import encode as p_encode
+    from huffman_tpu_torch.ops import histogram as p_hist
     from huffman_tpu_torch.ops import pack as p_pack
     from huffman_tpu_torch.ops import wide as p_wide
     from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
     from huffman_tpu_torch.ops.cuda import encode as k_encode
+    from huffman_tpu_torch.ops.cuda import histogram as k_hist
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
     from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
     from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
@@ -1328,9 +1450,11 @@ def path_counters() -> tuple[dict, dict]:
                "dense_decode": k_decode.launches,
                "wide_sub_encode": k_sub.launches,
                "wide_schedule": k_emit.schedule_launches,
-               "wide_emit": k_emit.launches, "wide_decode": k_wdec.launches}
+               "wide_emit": k_emit.launches, "wide_decode": k_wdec.launches,
+               "histogram": k_hist.launches}
     plain = {"encode": p_encode.cuda_calls, "pack": p_pack.cuda_calls,
              "dense_decode": p_decode.cuda_calls,
+             "histogram": p_hist.cuda_calls,
              **{f"wide_{k}": c for k, c in p_wide.cuda_calls.items()}}
     return kernels, plain
 
@@ -1446,6 +1570,7 @@ def phase_sharded(card: str, data: np.ndarray, exact, wide_blob: bytes,
     for c in (*kernels.values(), *plain.values()):
         c.n = 0
     enc, walls["encode"] = wall(lambda: codec.encode(data))
+    encode_hist = kernels["histogram"].n
     blob = container.dumps(enc)
     enc2 = container.loads(blob)
     back, walls["decode"] = wall(lambda: codec.decode(enc2))
@@ -1459,6 +1584,11 @@ def phase_sharded(card: str, data: np.ndarray, exact, wide_blob: bytes,
 
     require(all(v >= SHARDS for v in launches.values()),
             f"a kernel ran on fewer than {SHARDS} shards: {launches}")
+    # one histogram a shard for each of the two encodes
+    hist_by_call = {"encode": encode_hist,
+                    "encode_wide": launches["histogram"] - encode_hist}
+    require(hist_by_call == {"encode": SHARDS, "encode_wide": SHARDS},
+            f"sharded histogram launches {hist_by_call}")
     require(not any(plain_calls.values()),
             f"a plain version ran on CUDA tensors: {plain_calls}")
     require(np.array_equal(enc.codebook.lengths, exact.lengths),
@@ -1483,6 +1613,7 @@ def phase_sharded(card: str, data: np.ndarray, exact, wide_blob: bytes,
           "container_equal_single_same_book": True,
           "wide_container_equal_single": True, "roundtrips_exact": True,
           "launches": launches, "plain_calls_on_cuda": plain_calls,
+          "histogram_launches_by_call": hist_by_call,
           "wall_s": walls, "single_device_wall_s": single_walls,
           "GBps": {k: data.size / 1e9 / v for k, v in walls.items()},
           "card": card})
@@ -1592,6 +1723,7 @@ def main() -> int:
     from huffman_tpu_torch.ops.cuda import _build
     from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
     from huffman_tpu_torch.ops.cuda import encode as k_encode
+    from huffman_tpu_torch.ops.cuda import histogram as k_hist
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
     from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
     from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
@@ -1614,7 +1746,8 @@ def main() -> int:
 
     errs: dict = {}
     times: dict = {}
-    phase_kernels(card, errs, times)
+    library: dict = {}
+    phase_kernels(card, errs, times, library)
     phase_wide_kernels(card, errs, times)
     t0 = time.perf_counter()
     data = testdata.entropy_stream(MAIN_BYTES, seed=0)
@@ -1623,7 +1756,10 @@ def main() -> int:
     launches, single, exact, walls = phase_main(card, data)
     wide_launches, wide_blob, wide_walls = phase_wide_main(
         card, data, single.total_bits)
-    launches.update(wide_launches)
+    # each kernel's launches on the two main paths (the histogram runs on
+    # both)
+    launches = {k: launches.get(k, 0) + wide_launches.get(k, 0)
+                for k in {*launches, *wide_launches}}
     walls.update(wide_walls)
     del single
     phase_sharded(card, data, exact, wide_blob, walls)
@@ -1635,9 +1771,10 @@ def main() -> int:
     # first pass, is checked in the wide_main record
     mods = {"encode": k_encode, "pack": k_pack, "dense_decode": k_decode,
             "wide_sub_encode": k_sub, "wide_emit": k_emit,
-            "wide_decode": k_wdec}
-    # times at the kernel cases' main-path shapes (64 MiB); no PyTorch call
-    # computes a Huffman encode, pack or decode, so library_ms is null
+            "wide_decode": k_wdec, "histogram": k_hist}
+    # times at the kernel cases' main-path shapes (64 MiB); library_ms is
+    # torch.bincount's for the histogram, and null for the others: no
+    # PyTorch call computes a Huffman encode, pack or decode
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": m.SOURCE,
          "replaces": m.REPLACES, "launches": launches[name],
@@ -1645,7 +1782,8 @@ def main() -> int:
          "plain_ms": times[name][1], "bytes": times[name][2][0],
          "operations": times[name][2][1],
          "bound_ms": bound(times[name][2])[0],
-         "bound_by": bound(times[name][2])[1], "library_ms": None}
+         "bound_by": bound(times[name][2])[1],
+         "library_ms": library.get(name)}
         for name, m in mods.items()]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -249,8 +249,9 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
     return res
 
 
-def op_costs(build_dir: str) -> dict:
-    """Build scripts/op_costs.cu and return ns per operation of each kind."""
+def op_costs(build_dir: str, data_dir: str) -> dict:
+    """Build scripts/op_costs.cu and return ns per operation of each kind
+    (it reads no input from data_dir)."""
     from huffman_tpu_torch.ops.cuda import _build
     lib_path = os.path.join(build_dir, "libopcosts.so")
     r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,"

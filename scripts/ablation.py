@@ -58,7 +58,7 @@ def main(script: str, doc: str, variants: dict, exact: set, child,
     hidden --child PKG_ROOT DATA CHECK that runs child(pkg_root, data_dir,
     check) in the variant's process.  `extra` maps names that are no text
     variant to a function of the temporary directory that returns the
-    record."""
+    record, given that directory and the inputs' directory."""
     extra = extra or {}
     name = os.path.splitext(os.path.basename(script))[0]
     ap = argparse.ArgumentParser(description=doc.split("\n")[0])
@@ -98,7 +98,7 @@ def main(script: str, doc: str, variants: dict, exact: set, child,
         out["datagen_s"] = time.perf_counter() - t0
         for i, v in enumerate(args.variants.split(",")):
             if v in extra:
-                rec = extra[v](tmp)
+                rec = extra[v](tmp, data_dir)
             else:
                 vdir = os.path.join(tmp, f"{i}_{v}")
                 applied = patch_tree(tree, vdir, variants[v])
