@@ -15,7 +15,13 @@ Phases, each printing one JSON line:
                64 MiB of the main profile, uniform bytes and one repeated
                byte (times of all three, bincount's as library_ms), n_valid
                tails and start offsets of 1-15 bytes, 32-bit words, and
-               5 GiB of one byte (a count past 2^32); then a uniform
+               5 GiB of one byte (a count past 2^32); the offset scan
+               against its plain version (the torch.cumsum chain) on the
+               64 MiB block bits from every start bit 0..31, blocks at
+               capacity, 0, 1, 4095, 4097 and 1,048,583 counts (dense and
+               wide), a misaligned start, a total past 2^32 bits and a
+               word_base past 2^31, and a wide total past 2^62 - 1 that
+               must raise (times of the kernel and the chain); then a uniform
                256-symbol input (every block exactly at capacity), a
                14-bit codebook, a 20-bit one
                (decode table in device memory), pack alone on blocks that
@@ -51,8 +57,10 @@ Phases, each printing one JSON line:
                histogram's launches (the sample's and a rebuild's) and
                the final codebook's bits/byte beside the exact one's;
                end-to-end and kernel-only rates; K1's 1 GiB time at 128 and
-               256 words, pack's and K4's beside their bounds, and the
-               offset scan's, the histogram's beside torch.bincount's.
+               256 words, pack's and K4's beside their bounds, the
+               offset scan's beside the torch.cumsum chain's (after
+               holding it to the chain 20 times over on the 1 GiB bits),
+               and the histogram's beside torch.bincount's.
                Then dense_breakdown (each stage of the
                driver, the staging ring against the parent's pageable copy)
                and main_parent_flow (api.encode as the parent ran it, with
@@ -70,7 +78,9 @@ Phases, each printing one JSON line:
   6. wide_main - the wide path on the same 1 GiB: wide.encode_wide ->
                container dumps_wide -> loads_wide -> wide.decode_wide equal
                to the input, decode_wide_range across tiles; launch counts
-               read around that run (one histogram); the first 16 tiles and the last one
+               read around that run (one histogram, one offset scan);
+               the payload offsets against their plain version; the
+               first 16 tiles and the last one
                equal to the specification's encoder; end-to-end and
                kernel-only rates, K5's, the schedule with K7's and K8's
                1 GiB times beside their bounds, a per-stage wall
@@ -80,8 +90,8 @@ Phases, each printing one JSON line:
                api.encode's stream and container under that codebook, the
                wide encode equal to phase 6's container, both
                decodes equal to the input; launch counts read around that run
-               (every kernel at least once per shard, the histogram once a
-               shard in each encode); walls beside the
+               (every kernel at least once per shard, the histogram and
+               the offset scan once a shard in each encode); walls beside the
                single-device walls of phases 4 and 6, and a per-stage
                breakdown of the dense encode and decode with each shard's
                kernel times.  Four shards on one card show what sharding
@@ -99,8 +109,9 @@ error against its plain version, its time (the device time of launches
 captured in a CUDA graph: graph_ms), the plain version's, and its bound:
 the larger of the bytes it must move at 3.35 TB/s and its operations at
 67 T/s, all at the 64 MiB kernel shapes, K1 at the capacity api.encode
-keeps there; torch.bincount's time as the histogram's library_ms), the
-card's nvidia-smi line, and the result line.
+keeps there; torch.bincount's time as the histogram's library_ms, the
+torch.cumsum chain's graph-replay time as the offset scan's), the card's
+nvidia-smi line, and the result line.
 Any mismatch raises and the script exits non-zero, as it does when no
 CUDA device is available.  Imports nothing of JAX.
 """
@@ -491,6 +502,108 @@ def compare_histogram(card: str, main: np.ndarray, errs: dict, times: dict,
             "bound": bound(work), "card": card}
 
 
+def scan_work(n: int, split: bool = True) -> tuple:
+    """(bytes, operations) of the offset scan of n counts: each count read
+    once, the int64 offsets (and the int32 bit shifts) and the two totals
+    written once; one add a count."""
+    return 4 * n + (12 if split else 8) * n + 16, n
+
+
+def scan_equal(name: str, x: torch.Tensor, start: int = 0,
+               scale: int = 1) -> int:
+    """The offset scan kernel against its plain version on the same device
+    counts, exactly: the dense offsets and totals (scale 1, from bit
+    `start`) or the wide payload offsets and length (scale 2).  Returns
+    the largest difference, which must be 0."""
+    from huffman_tpu_torch.ops import scan as p_scan
+    from huffman_tpu_torch.ops.cuda import scan as k_scan
+
+    if scale == 1:
+        got = k_scan.bit_offsets(x, start)
+        want = p_scan.exclusive_bit_offsets_plain(x, start)
+    else:
+        got = k_scan.payload_offsets(x)
+        want = p_scan.payload_offsets_plain(x)
+    e = max(max_abs_err(a, b) for a, b in zip(got, want))
+    require(e == 0, f"scan {name} (start {start}, scale {scale}): kernel "
+                    f"!= plain (max err {e})")
+    return e
+
+
+def compare_scan(card: str, bits64: np.ndarray, errs: dict, times: dict,
+                 library: dict) -> dict:
+    """The offset scan kernel against its plain version (ops.scan
+    .exclusive_bit_offsets_plain, the int64 torch.cumsum chain), exactly:
+    the main profile's block bits at the kernel shapes (64 MiB) from every
+    start bit 0..31; blocks at the 1 KiB block's capacity; 0, 1, a tile
+    less or more one and 1,048,583 counts; counts that start 4 bytes past
+    a 16-byte boundary; 262,144-byte blocks of 24-bit codes, whose total
+    passes 2^32 bits and word_base 2^31, dense and as wide tile words; and
+    a wide total past the kernel's status word (2^62 - 1), which must
+    raise.  Times at 64 MiB: the kernel and the chain by graph replay (the
+    chain's as library_ms), the plain version by events, as the other
+    kernels' plain versions."""
+    from huffman_tpu_torch.config import CodecConfig
+    from huffman_tpu_torch.ops import scan as p_scan
+    from huffman_tpu_torch.ops.cuda import scan as k_scan
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    tile = k_scan.TILE
+    err, cases = 0, 0
+
+    def check(name, x, start=0, scale=1):
+        nonlocal err, cases
+        err, cases = max(err, scan_equal(name, x, start, scale)), cases + 1
+
+    d64 = torch.from_numpy(np.ascontiguousarray(bits64, np.int32)).to(dev)
+    for start in range(32):
+        check("main_profile", d64, start)
+    cap_bits = CodecConfig().capacity_words * 32
+    check("at_capacity", torch.full((65536,), cap_bits, dtype=torch.int32,
+                                    device=dev), 7)
+    for n in (0, 1, tile - 1, tile + 1, 1_048_583):
+        x = torch.randint(0, 9001, (n,), generator=g, dtype=torch.int32,
+                          device=dev)
+        for start in (0, 31):
+            check(f"n{n}", x, start)
+        check(f"n{n}_wide", x, 0, 2)
+    check("offset_4_bytes", d64[1:], 13)
+    big_bits = 262144 * 24          # a 262,144-byte block of 24-bit codes
+    big = torch.full((1_048_583,), big_bits, dtype=torch.int32, device=dev)
+    check("past_2^32", big, 29)
+    check("past_2^32_wide", big, 0, 2)
+    offs = k_scan.bit_offsets(big, 29)
+    total = int(offs.total_bits)
+    require(total == 29 + big.numel() * big_bits and total > 1 << 32
+            and int(offs.word_base[-1]) > 1 << 31,
+            f"scan past_2^32: total {total}")
+    del big, offs
+    # 2^30 + 2 tile words of 2^31 - 1: the payload passes 2^62 - 1 words
+    huge = torch.full(((1 << 30) + 2,), (1 << 31) - 1, dtype=torch.int32,
+                      device=dev)
+    try:
+        k_scan.payload_offsets(huge)
+        raise RuntimeError("check failed: scan past 2^62: no OverflowError")
+    except OverflowError:
+        pass
+    del huge
+    torch.cuda.empty_cache()
+    errs["scan"] = err
+    ms = graph_ms(lambda: p_scan.exclusive_bit_offsets(d64), 20)
+    plain_ms = cuda_ms(lambda: p_scan.exclusive_bit_offsets_plain(d64), 20)
+    library["scan"] = graph_ms(
+        lambda: p_scan.exclusive_bit_offsets_plain(d64), 20)
+    work = scan_work(d64.numel())
+    times["scan"] = (ms, plain_ms, work)
+    return {"phase": "kernels", "case": "scan", "blocks": d64.numel(),
+            "cases_checked": cases, "max_abs_err": err,
+            "past_2^32_total_bits": total, "past_2^62_refused": True,
+            "kernel_ms": ms, "plain_ms": plain_ms,
+            "chain_graph_ms": library["scan"], "bytes_moved": work[0],
+            "bound": bound(work), "card": card}
+
+
 def edge_data(n: int = 64 * 300 + 37):
     """Small explicit-codebook cases: with 64-byte blocks, a partial warp of
     16 lanes; a final partial block, a 4-byte group that is exactly 32
@@ -682,13 +795,14 @@ def phase_kernels(card: str, errs: dict, times: dict, library: dict) -> None:
     cfg = CodecConfig()
     main = testdata.entropy_stream(KERNEL_BYTES, seed=1)
     # K1 at the capacity api.encode keeps for this input
-    _, tr = api.encode_traced(main, cfg, device="cuda")
+    enc, tr = api.encode_traced(main, cfg, device="cuda")
     emit(compare_kernels("main_path_shapes", main, cfg, card, errs,
                          reps=20, plain_reps=2, times=times,
                          cap=tr.capacities_tried[-1]))
 
     uni = testdata.uniform_random(16 << 20, seed=2)
     emit(compare_histogram(card, main, errs, times, library))
+    emit(compare_scan(card, enc.block_bits, errs, times, library))
     rec = compare_kernels("uniform256_at_capacity", uni, cfg, card, errs,
                           codebook=Codebook.from_lengths(np.full(256, 8)))
     require(rec["total_bits"] == uni.size * 8, "uniform: not 8 bits/byte")
@@ -863,14 +977,17 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     from huffman_tpu_torch.ops import encode as p_encode
     from huffman_tpu_torch.ops import histogram as p_hist
     from huffman_tpu_torch.ops import pack as p_pack
+    from huffman_tpu_torch.ops import scan as p_scan
     from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
     from huffman_tpu_torch.ops.cuda import encode as k_encode
     from huffman_tpu_torch.ops.cuda import histogram as k_hist
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
+    from huffman_tpu_torch.ops.cuda import scan as k_scan
 
     counters = [k_encode.launches, k_pack.launches, k_decode.launches,
-                k_hist.launches, p_encode.cuda_calls, p_pack.cuda_calls,
-                p_decode.cuda_calls, p_hist.cuda_calls]
+                k_hist.launches, k_scan.launches, p_encode.cuda_calls,
+                p_pack.cuda_calls, p_decode.cuda_calls, p_hist.cuda_calls,
+                p_scan.cuda_calls]
     bb = 1024
     # decode_range from a block that starts at a nonzero bit shift is
     # chosen after the run, from its block bits; 6 KiB past it
@@ -898,11 +1015,12 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     torch.cuda.synchronize()
     launches = {"encode": k_encode.launches.n, "pack": k_pack.launches.n,
                 "dense_decode": k_decode.launches.n,
-                "histogram": k_hist.launches.n}
+                "histogram": k_hist.launches.n, "scan": k_scan.launches.n}
     plain_calls = {"encode": p_encode.cuda_calls.n,
                    "pack": p_pack.cuda_calls.n,
                    "dense_decode": p_decode.cuda_calls.n,
-                   "histogram": p_hist.cuda_calls.n}
+                   "histogram": p_hist.cuda_calls.n,
+                   "scan": p_scan.cuda_calls.n}
     # --- end of the main path ---
 
     require(all(v > 0 for v in launches.values()),
@@ -915,6 +1033,9 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     # the (sampled) codebook's histogram, and the exact one of a rebuild
     require(launches["histogram"] == 1 + trace.rebuilt,
             f"histogram launches {launches['histogram']} for {trace}")
+    # the offsets of the encode's pack and of api.decode (decode_range
+    # scans its span on the host)
+    require(launches["scan"] == 2, f"scan launches {launches['scan']} != 2")
     t0 = time.perf_counter()
     ref_bytes, ref_bits = golden.encode(data, enc.codebook)
     golden_s = time.perf_counter() - t0
@@ -965,7 +1086,14 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     b_k = b_k & BITS_MASK
     offs_k = exclusive_bit_offsets(b_k)
     pack_ms = graph_ms(lambda: st.pack(k_pack, s_k, b_k, offs_k, n_words), 5)
+    # the scan against its plain version on these bits, 20 times over (a
+    # look-back race would show as a difference), and both timed
+    for _ in range(20):
+        scan_equal("main_1GiB", b_k)
     scan_ms = graph_ms(lambda: exclusive_bit_offsets(b_k), 5)
+    scan_chain_ms = graph_ms(
+        lambda: p_scan.exclusive_bit_offsets_plain(b_k), 5)
+    scan_bound = bound(scan_work(b_k.numel()))[0]
     del s_k, b_k, offs_k
     # the histogram of the resident input, and torch.bincount's (events:
     # it syncs the host)
@@ -1018,7 +1146,10 @@ def phase_main(card: str, data: np.ndarray) -> dict:
           "pack_kernel_ms": pack_ms, "pack_kernel_bytes": work[cap]["pack"][0],
           "pack_kernel_bound_ms": pack_bound,
           "pack_kernel_bound_share": pack_bound / pack_ms,
-          "scan_ms": scan_ms,
+          "scan_ms": scan_ms, "scan_chain_ms": scan_chain_ms,
+          "scan_bytes": scan_work(nb)[0], "scan_bound_ms": scan_bound,
+          "scan_bound_share": scan_bound / scan_ms,
+          "scan_repeats_exact": 20,
           "histogram_kernel_ms": hist_ms,
           "histogram_kernel_bytes": hist_work(data.size)[0],
           "histogram_kernel_bound_ms": hist_bound,
@@ -1300,14 +1431,17 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
     from huffman_tpu_torch import container, wide
     from huffman_tpu_torch.golden.wide_codec import TILE_BYTES
     from huffman_tpu_torch.ops import histogram as p_hist
+    from huffman_tpu_torch.ops import scan as p_scan
     from huffman_tpu_torch.ops import wide as p_wide
     from huffman_tpu_torch.ops.cuda import histogram as k_hist
+    from huffman_tpu_torch.ops.cuda import scan as k_scan
     from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
     from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
     from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
 
     counters = [k_sub.launches, k_emit.schedule_launches, k_emit.launches,
-                k_wdec.launches, k_hist.launches, p_hist.cuda_calls,
+                k_wdec.launches, k_hist.launches, k_scan.launches,
+                p_hist.cuda_calls, p_scan.cuda_calls,
                 *p_wide.cuda_calls.values()]
 
     # --- the wide path, with every count at 0 just before it ---
@@ -1334,9 +1468,10 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
                 "wide_schedule": k_emit.schedule_launches.n,
                 "wide_emit": k_emit.launches.n,
                 "wide_decode": k_wdec.launches.n,
-                "histogram": k_hist.launches.n}
+                "histogram": k_hist.launches.n, "scan": k_scan.launches.n}
     plain_calls = {**{k: c.n for k, c in p_wide.cuda_calls.items()},
-                   "histogram": p_hist.cuda_calls.n}
+                   "histogram": p_hist.cuda_calls.n,
+                   "scan": p_scan.cuda_calls.n}
     # --- end of the wide path ---
 
     require(all(v > 0 for v in launches.values()),
@@ -1345,6 +1480,9 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
             f"a plain version ran on CUDA tensors: {plain_calls}")
     require(launches["histogram"] == 1,
             f"wide histogram launches {launches['histogram']} != 1")
+    # the payload offsets of the encode (the decodes' are the host's)
+    require(launches["scan"] == 1,
+            f"wide scan launches {launches['scan']} != 1")
     require(np.array_equal(back, data), "wide container roundtrip != input")
     require(np.array_equal(part, data[r0:r1]), "decode_wide_range != input")
     nt = len(enc.tile_words)
@@ -1374,6 +1512,7 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
     pay, bases, tw, offs = enc_kernels()
     require(np.array_equal(pay.cpu().numpy().view(np.uint32),
                            enc.payload_words), "device-resident encode != api")
+    scan_equal("wide_main_1GiB", tw, 0, 2)
     enc_ms = cuda_ms(enc_kernels, 5)
     k5_ms = graph_ms(lambda: st.sub_encode(k_sub), 5)
     dec_ms = graph_ms(lambda: st.decode(k_wdec, pay, offs, tw, bases), 5)
@@ -1438,11 +1577,13 @@ def path_counters() -> tuple[dict, dict]:
     from huffman_tpu_torch.ops import encode as p_encode
     from huffman_tpu_torch.ops import histogram as p_hist
     from huffman_tpu_torch.ops import pack as p_pack
+    from huffman_tpu_torch.ops import scan as p_scan
     from huffman_tpu_torch.ops import wide as p_wide
     from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
     from huffman_tpu_torch.ops.cuda import encode as k_encode
     from huffman_tpu_torch.ops.cuda import histogram as k_hist
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
+    from huffman_tpu_torch.ops.cuda import scan as k_scan
     from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
     from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
     from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
@@ -1451,10 +1592,10 @@ def path_counters() -> tuple[dict, dict]:
                "wide_sub_encode": k_sub.launches,
                "wide_schedule": k_emit.schedule_launches,
                "wide_emit": k_emit.launches, "wide_decode": k_wdec.launches,
-               "histogram": k_hist.launches}
+               "histogram": k_hist.launches, "scan": k_scan.launches}
     plain = {"encode": p_encode.cuda_calls, "pack": p_pack.cuda_calls,
              "dense_decode": p_decode.cuda_calls,
-             "histogram": p_hist.cuda_calls,
+             "histogram": p_hist.cuda_calls, "scan": p_scan.cuda_calls,
              **{f"wide_{k}": c for k, c in p_wide.cuda_calls.items()}}
     return kernels, plain
 
@@ -1570,11 +1711,13 @@ def phase_sharded(card: str, data: np.ndarray, exact, wide_blob: bytes,
     for c in (*kernels.values(), *plain.values()):
         c.n = 0
     enc, walls["encode"] = wall(lambda: codec.encode(data))
-    encode_hist = kernels["histogram"].n
+    encode_hist, encode_scan = kernels["histogram"].n, kernels["scan"].n
     blob = container.dumps(enc)
     enc2 = container.loads(blob)
     back, walls["decode"] = wall(lambda: codec.decode(enc2))
+    decode_scan = kernels["scan"].n - encode_scan
     wenc, walls["encode_wide"] = wall(lambda: codec.encode_wide(data))
+    encode_wide_scan = kernels["scan"].n - encode_scan - decode_scan
     wblob = container.dumps_wide(wenc)
     wenc2 = container.loads_wide(wblob)
     wback, walls["decode_wide"] = wall(lambda: codec.decode_wide(wenc2))
@@ -1589,6 +1732,15 @@ def phase_sharded(card: str, data: np.ndarray, exact, wide_blob: bytes,
                     "encode_wide": launches["histogram"] - encode_hist}
     require(hist_by_call == {"encode": SHARDS, "encode_wide": SHARDS},
             f"sharded histogram launches {hist_by_call}")
+    # one offset scan a shard in each encode (the packs' offsets, the
+    # payload offsets); the decodes take their offsets from the host
+    scan_by_call = {"encode": encode_scan, "decode": decode_scan,
+                    "encode_wide": encode_wide_scan,
+                    "decode_wide": launches["scan"] - encode_scan
+                    - decode_scan - encode_wide_scan}
+    require(scan_by_call == {"encode": SHARDS, "decode": 0,
+                             "encode_wide": SHARDS, "decode_wide": 0},
+            f"sharded scan launches {scan_by_call}")
     require(not any(plain_calls.values()),
             f"a plain version ran on CUDA tensors: {plain_calls}")
     require(np.array_equal(enc.codebook.lengths, exact.lengths),
@@ -1614,6 +1766,7 @@ def phase_sharded(card: str, data: np.ndarray, exact, wide_blob: bytes,
           "wide_container_equal_single": True, "roundtrips_exact": True,
           "launches": launches, "plain_calls_on_cuda": plain_calls,
           "histogram_launches_by_call": hist_by_call,
+          "scan_launches_by_call": scan_by_call,
           "wall_s": walls, "single_device_wall_s": single_walls,
           "GBps": {k: data.size / 1e9 / v for k, v in walls.items()},
           "card": card})
@@ -1725,6 +1878,7 @@ def main() -> int:
     from huffman_tpu_torch.ops.cuda import encode as k_encode
     from huffman_tpu_torch.ops.cuda import histogram as k_hist
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
+    from huffman_tpu_torch.ops.cuda import scan as k_scan
     from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
     from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
     from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
@@ -1756,8 +1910,8 @@ def main() -> int:
     launches, single, exact, walls = phase_main(card, data)
     wide_launches, wide_blob, wide_walls = phase_wide_main(
         card, data, single.total_bits)
-    # each kernel's launches on the two main paths (the histogram runs on
-    # both)
+    # each kernel's launches on the two main paths (the histogram and the
+    # scan run on both)
     launches = {k: launches.get(k, 0) + wide_launches.get(k, 0)
                 for k in {*launches, *wide_launches}}
     walls.update(wide_walls)
@@ -1771,10 +1925,11 @@ def main() -> int:
     # first pass, is checked in the wide_main record
     mods = {"encode": k_encode, "pack": k_pack, "dense_decode": k_decode,
             "wide_sub_encode": k_sub, "wide_emit": k_emit,
-            "wide_decode": k_wdec, "histogram": k_hist}
+            "wide_decode": k_wdec, "histogram": k_hist, "scan": k_scan}
     # times at the kernel cases' main-path shapes (64 MiB); library_ms is
-    # torch.bincount's for the histogram, and null for the others: no
-    # PyTorch call computes a Huffman encode, pack or decode
+    # torch.bincount's for the histogram, the torch.cumsum chain's (the
+    # plain version, by graph replay) for the scan, and null for the
+    # others: no PyTorch call computes a Huffman encode, pack or decode
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": m.SOURCE,
          "replaces": m.REPLACES, "launches": launches[name],

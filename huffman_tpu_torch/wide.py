@@ -4,10 +4,10 @@ Format spec: golden/wide_codec.py; in-memory form of container v3.
 
 encode_wide: bytes to the device as (NS, 256) substream rows -> histogram
 (device) + codebook (host) -> K5 substream encode -> one host sync for
-the miss flags -> schedule kernel (bases, tile_words, pull masks) -> int64
-cumsum of 2 * tile_words, the tiles' payload offsets -> one host sync for
-the payload length -> K7 emit straight into the payload -> payload,
-tile_words and bases to the host.
+the miss flags -> schedule kernel (bases, tile_words, pull masks) -> offset
+scan kernel over 2 * tile_words, the tiles' payload offsets -> one host
+sync for the payload length -> K7 emit straight into the payload ->
+payload, tile_words and bases to the host.
 decode_wide / decode_wide_range: host offsets from tile_words -> the
 covering tiles' payload span to the device -> K8 over those tiles -> bytes.
 
@@ -35,6 +35,7 @@ from . import api
 from .codebook import Codebook
 from .config import DEFAULT_CONFIG, CodecConfig, cdiv
 from .golden.wide_codec import MAXLEN, N_SUB, ROUNDS, SUB_BYTES, TILE_BYTES
+from .ops.cuda import scan as k_scan
 from .ops.cuda import wide_decode as k_decode
 from .ops.cuda import wide_emit as k_emit
 from .ops.cuda import wide_encode as k_sub
@@ -86,11 +87,11 @@ def device_substreams(arr: np.ndarray, device: torch.device):
 
 
 def payload_offsets(tile_words: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """Each tile's first payload word (int64 exclusive cumsum of its two
-    planes) and the payload length, which is a host sync."""
-    sizes = 2 * tile_words.to(torch.int64)
-    ends = torch.cumsum(sizes, 0)
-    return ends - sizes, int(ends[-1])
+    """Each tile's first payload word (the int64 exclusive sum of its two
+    planes, through the offset scan's kernel on a CUDA device) and the
+    payload length, which is a host sync."""
+    offsets, total = k_scan.payload_offsets(tile_words)
+    return offsets, int(total)
 
 
 def encode_substreams(rows: torch.Tensor, valid: torch.Tensor,

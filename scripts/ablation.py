@@ -1,5 +1,4 @@
-"""The runner that scripts/ablate_decoders.py, ablate_encoders.py and
-ablate_emit.py share.
+"""The runner that the scripts/ablate_*.py scripts share.
 
 Each of those scripts names variants of its kernels as exact text
 substitutions of the sources under huffman_tpu_torch/csrc/, and a `child`
