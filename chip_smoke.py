@@ -61,10 +61,8 @@ Phases, each printing one JSON line:
                offset scan's beside the torch.cumsum chain's (after
                holding it to the chain 20 times over on the 1 GiB bits),
                and the histogram's beside torch.bincount's.
-               Then dense_breakdown (each stage of the
-               driver, the staging ring against the parent's pageable copy)
-               and main_parent_flow (api.encode as the parent ran it, with
-               no sampling, chunks or speculation, in turns with the
+               Then main_parent_flow (api.encode as the parent ran it,
+               with no sampling, chunks or speculation, in turns with the
                change).
   5. wide_kernels - each wide kernel (K5 substream encode, the schedule and
                K7 emit, K8 decode) against its plain version, exactly: at
@@ -83,8 +81,8 @@ Phases, each printing one JSON line:
                first 16 tiles and the last one
                equal to the specification's encoder; end-to-end and
                kernel-only rates, K5's, the schedule with K7's and K8's
-               1 GiB times beside their bounds, a per-stage wall
-               breakdown, and bits per byte beside the dense stream's.
+               1 GiB times beside their bounds, and bits per byte beside
+               the dense stream's.
   7. sharded - parallel.ShardedCodec over four shards of cuda:0 on the same
                1 GiB: its codebook the exact one, the dense encode equal to
                api.encode's stream and container under that codebook, the
@@ -92,10 +90,8 @@ Phases, each printing one JSON line:
                decodes equal to the input; launch counts read around that run
                (every kernel at least once per shard, the histogram and
                the offset scan once a shard in each encode); walls beside the
-               single-device walls of phases 4 and 6, and a per-stage
-               breakdown of the dense encode and decode with each shard's
-               kernel times.  Four shards on one card show what sharding
-               costs, not how it scales.
+               single-device walls of phases 4 and 6.  Four shards on one
+               card show what sharding costs, not how it scales.
   8. multiprocess - two copies of this script (--worker RANK 2 PORT) join one
                gloo process group with two shards of cuda:0 each, a mesh of
                four: on 64 MiB of the same profile each checks the dense
@@ -844,98 +840,6 @@ def phase_kernels(card: str, errs: dict, times: dict, library: dict) -> None:
     driver_cases(card)
 
 
-def dense_breakdown(data: np.ndarray, enc, trace, card: str) -> dict:
-    """Host wall of each stage of api.encode's kernel path, with a
-    synchronize after each: the driver's functions called one by one, as
-    the trace of the main run says they ran (a rebuild and a retry only if
-    it had them).  Beside them, the staging ring alone, K1 alone on the
-    resident input (their sum less the staged pass is the overlap), and
-    the parent's single pageable copy of the same bytes, in turns."""
-    from huffman_tpu_torch import api
-    from huffman_tpu_torch.config import CodecConfig, cdiv
-    from huffman_tpu_torch.ops.cuda import encode as k_encode
-    from huffman_tpu_torch.ops.cuda import pack2 as k_pack
-    from huffman_tpu_torch.ops.encode import BITS_MASK
-    from huffman_tpu_torch.ops.scan import exclusive_bit_offsets
-
-    ms = {}
-
-    def stage(name, fn):
-        out, sec = wall(fn)
-        ms[name] = sec * 1e3
-        return out
-
-    require(trace.sampled and trace.chunks, f"breakdown: main ran {trace}")
-    cfg, dev, n = CodecConfig(), torch.device("cuda"), data.size
-    nb, bb = cfg.num_blocks(n), cfg.block_bytes
-    sample = stage("sample_gather", lambda: api.sample_rows(
-        data, cfg, api.SAMPLE_EVERY))
-    d_sample = stage("sample_upload", lambda: api._from_numpy(sample, dev))
-    cb = stage("sample_histogram_codebook", lambda: api._codebook_for(
-        d_sample, d_sample.numel(), cfg))
-    del sample, d_sample
-    codes, lengths = api.codebook_tensors(cb, dev)
-    caps = iter(trace.capacities_tried)
-    rows = torch.empty(nb * bb, dtype=torch.uint8, device=dev)
-    valid = api._from_numpy(api.valid_per_block(n, nb, bb), dev)
-    streams, bits, chunks = stage("chunked_h2d_k1", lambda: api._encode_staged(
-        data, rows, codes, lengths, valid, next(caps), bb))
-    raw = stage("bits_d2h", lambda: bits.cpu().numpy())
-    if trace.rebuilt:
-        cb = stage("rebuild_histogram_codebook", lambda: api._codebook_for(
-            rows.view(nb, bb), n, cfg))
-        codes, lengths = api.codebook_tensors(cb, dev)
-        streams, bits = stage("rebuild_k1", lambda: k_encode.encode_blocks(
-            rows.view(nb, bb), codes, lengths, valid, next(caps)))
-        raw = stage("rebuild_bits_d2h", lambda: bits.cpu().numpy())
-    for i, cap in enumerate(caps):
-        streams, bits = stage(f"retry_k1_{i}", lambda: k_encode.encode_blocks(
-            rows.view(nb, bb), codes, lengths, valid, cap))
-        raw = stage(f"retry_bits_d2h_{i}", lambda: bits.cpu().numpy())
-    block_bits = api.check_block_bits(raw, cfg)
-    total = int(block_bits.astype(np.int64).sum())
-
-    def scan_pack():
-        b = bits & BITS_MASK
-        offs = exclusive_bit_offsets(b)
-        return k_pack.pack_blocks(streams, b, offs.word_base, offs.bit_shift,
-                                  cdiv(total, 32))
-    stream = stage("scan_pack", scan_pack)
-    words = stage("stream_d2h", lambda: stream.cpu().numpy().view(np.uint32))
-    require(np.array_equal(words, enc.stream_words),
-            "breakdown: stream != api.encode's")
-    del streams, bits, stream, words
-    # the staged pass, its two halves alone (the ring's copies, K1 on the
-    # resident input) and the parent's pageable copy, in turns
-    k1_cap = trace.capacities_tried[0]
-    runs = {"staged_pass": lambda: api._encode_staged(
-                data, rows, codes, lengths, valid, k1_cap, bb),
-            "ring": lambda: list(api.stage_chunks(
-                data, rows, api.CHUNK_BLOCKS * bb)),
-            "k1": lambda: k_encode.encode_blocks(
-                rows.view(nb, bb), codes, lengths, valid, k1_cap),
-            "pageable": lambda: api.device_blocks(data, cfg, dev)}
-    turns = {k: [] for k in runs}
-    for how in ("staged_pass", "ring", "pageable", "k1", "k1", "pageable",
-                "ring", "staged_pass"):
-        turns[how].append(wall(runs[how])[1] * 1e3)
-    require(np.array_equal(rows[:n].cpu().numpy(), data),
-            "breakdown: staged rows != input")
-    mean = {k: sum(v) / len(v) for k, v in turns.items()}
-    # pinned host memory: a size the caching host allocator has not seen,
-    # then the same size again (from its cache)
-    size = 2 * (api.CHUNK_BLOCKS * bb + 4096)
-    pinned = [wall(lambda: torch.empty(size, dtype=torch.uint8,
-                                       pin_memory=True))[1] * 1e3
-              for _ in range(2)]
-    return {"phase": "dense_breakdown", "bytes": n, "chunks": chunks,
-            "ms": ms, "turns_ms": turns,
-            "staged_pass_overlap_ms": mean["ring"] + mean["k1"]
-            - mean["staged_pass"],
-            "pinned_alloc_ms": {"new": pinned[0], "cached": pinned[1]},
-            "card": card}
-
-
 def parent_flow(data: np.ndarray, card: str) -> dict:
     """api.encode of the same input as the parent ran it (no sampling, no
     chunks, CodecConfig(spec_bits_per_byte=0): the exact codebook, one
@@ -1159,7 +1063,6 @@ def phase_main(card: str, data: np.ndarray) -> dict:
           "decode_kernel_bound_ms": dec_bound,
           "decode_kernel_bound_share": dec_bound / dec_ms,
           "card": card})
-    emit(dense_breakdown(data, enc, trace, card))
     emit(parent_flow(data, card))
     return launches, enc, exact, {"encode": enc_s, "decode": dec_s}
 
@@ -1367,66 +1270,6 @@ def phase_wide_kernels(card: str, errs: dict, times: dict) -> None:
     emit(compare_wide("subtile_5000", small, card, errs, spec_tiles=1))
 
 
-def wide_breakdown(data: np.ndarray, card: str) -> dict:
-    """Host wall of each stage of the wide path, with a synchronize after
-    each: the stages of wide.encode_wide and wide.decode_wide, called one
-    by one."""
-    from huffman_tpu_torch import api, container, wide
-    from huffman_tpu_torch.config import CodecConfig
-    from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
-    from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
-    from huffman_tpu_torch.ops.cuda import wide_encode as k_sub
-    from huffman_tpu_torch.ops.decode import table_entries
-
-    ms = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        ms[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    dev = torch.device("cuda")
-    n = data.size
-    rows, valid = stage("h2d_input", lambda: wide.device_substreams(data, dev))
-    cb = stage("histogram_codebook",
-               lambda: api._codebook_for(rows, n, CodecConfig()))
-    mcl = wide.reader_mcl(cb)
-    codes = torch.from_numpy(cb.codes.astype(np.uint32).view(np.int32)).cuda()
-    lengths = torch.from_numpy(cb.lengths.astype(np.int32)).cuda()
-    streams, bits, l2 = stage("k5_sub_encode", lambda: k_sub.sub_encode(
-        rows, codes, lengths, valid, wide.slot_words(mcl)))
-    stage("miss_check", lambda: bool((bits < 0).any()))
-    nt = rows.shape[0] // 1024
-    tb = torch.from_numpy(wide.tile_bytes(n, 0, nt)).cuda()
-    bases, tw, masks = stage("schedule",
-                             lambda: k_emit.schedule_counts(l2, tb, mcl))
-    offs, n_words = stage("offsets_and_sync", lambda: wide.payload_offsets(tw))
-    payload = stage("k7_emit", lambda: k_emit.emit_planes(
-        streams, masks, bases, tw, offs, n_words))
-    enc = stage("d2h_payload", lambda: wide.WideEncoded(
-        payload.cpu().numpy().view(np.uint32), tw.cpu().numpy(),
-        bases.cpu().numpy(), cb, n, CodecConfig()))
-    del rows, valid, streams, bits, l2, masks, payload
-    blob = stage("container_dumps", lambda: container.dumps_wide(enc))
-    enc = stage("container_loads", lambda: container.loads_wide(blob))
-    del blob
-    ops = stage("h2d_payload_and_tables", lambda: (
-        torch.from_numpy(enc.payload_words.view(np.int32)).cuda(),
-        torch.from_numpy(np.concatenate([[0], np.cumsum(
-            2 * enc.tile_words.astype(np.int64))[:-1]])).cuda(),
-        torch.from_numpy(enc.tile_words).cuda(),
-        torch.from_numpy(enc.bases).cuda(),
-        torch.from_numpy(table_entries(cb, mcl)).cuda()))
-    out = stage("k8_decode", lambda: k_wdec.decode_tiles(
-        ops[0], ops[1], ops[2], ops[3], tb, ops[4], mcl))
-    back = stage("d2h_output", lambda: out.reshape(-1)[:n].cpu().numpy())
-    require(np.array_equal(back, data), "breakdown: decoded bytes != input")
-    return {"phase": "wide_breakdown", "bytes": n, "ms": ms, "card": card}
-
-
 def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
     from huffman_tpu_torch import container, wide
     from huffman_tpu_torch.golden.wide_codec import TILE_BYTES
@@ -1556,7 +1399,6 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
           "decode_kernel_bytes": work["wide_decode"][0],
           "decode_kernel_bound_ms": dec_bound,
           "decode_kernel_bound_share": dec_bound / dec_ms, "card": card})
-    emit(wide_breakdown(data, card))
     return launches, blob, {"encode_wide": enc_s, "decode_wide": dec_s}
 
 
@@ -1598,99 +1440,6 @@ def path_counters() -> tuple[dict, dict]:
              "histogram": p_hist.cuda_calls, "scan": p_scan.cuda_calls,
              **{f"wide_{k}": c for k, c in p_wide.cuda_calls.items()}}
     return kernels, plain
-
-
-def sharded_breakdown(codec, data: np.ndarray, single, card: str) -> dict:
-    """Host wall of each stage of ShardedCodec.encode and .decode, with a
-    synchronize after each, and each shard's K1, pack and K4 device time
-    from CUDA events."""
-    from huffman_tpu_torch import api
-    from huffman_tpu_torch.config import cdiv
-    from huffman_tpu_torch.ops.cuda import encode as k_encode
-    from huffman_tpu_torch.ops.cuda import pack2 as k_pack
-    from huffman_tpu_torch.ops.encode import BITS_MASK
-    from huffman_tpu_torch.ops.scan import exclusive_bit_offsets
-    from huffman_tpu_torch.parallel.mesh import fetch
-    from huffman_tpu_torch.parallel.pipeline import (assemble_dense,
-                                                     encode_phase1,
-                                                     pack_phase2, shard_bases)
-    ms = {}
-
-    def stage(name, fn):
-        out, sec = wall(fn)
-        ms[name] = sec * 1e3
-        return out
-
-    mesh, cfg = codec.mesh, codec.cfg
-    arr, nb = codec.prepare(data)
-    d_blocks, d_valid = stage("h2d_input",
-                              lambda: codec.shard_inputs(arr, nb))
-    cb = stage("histogram_codebook",
-               lambda: codec._codebook(d_blocks, d_valid))
-    sched = api._cap_schedule(cfg, api._kernel_mcl(cb), cb.est_bpb)
-    for cap in sched:
-        streams, bits = stage(f"k1_all_shards_cap{cap}", lambda: encode_phase1(
-            mesh, d_blocks, d_valid, cb, cap))
-        block_bits = stage(f"bits_d2h_and_checks_cap{cap}",
-                           lambda: api.check_block_bits(fetch(mesh, bits)[0],
-                                                        cfg))
-        if int(block_bits.max()) <= cap * 32:
-            break
-    shard_bits, base = shard_bases(block_bits, mesh)
-    slices, used = stage("pack_all_shards", lambda: pack_phase2(
-        mesh, streams, bits, shard_bits, base))
-    flat, offs = stage("streams_d2h", lambda: fetch(mesh, slices))
-    stream = stage("assemble_dense", lambda: assemble_dense(
-        [flat[offs[s]: offs[s + 1]] for s in range(mesh.size)], base >> 5,
-        used, cdiv(int(shard_bits.sum()), 32)))
-    require(np.array_equal(stream, single.stream_words),
-            "breakdown: sharded stream != ShardedCodec.encode's")
-    del flat, slices, stream
-
-    shard_ms = {"k1": [], "pack": [], "dense_decode": []}
-    codes, lengths = api.codebook_tensors(cb, mesh.devices[0])
-    for s in range(mesh.size):
-        shard_ms["k1"].append(cuda_ms(lambda: k_encode.encode_blocks(
-            d_blocks[s], codes, lengths, d_valid[s], cap), 3))
-        b = bits[s] & BITS_MASK
-        offs = exclusive_bit_offsets(b, int(base[s] & 31))
-        shard_ms["pack"].append(cuda_ms(lambda: k_pack.pack_blocks(
-            streams[s], b, offs.word_base, offs.bit_shift, int(used[s])), 3))
-    del d_blocks, d_valid, streams, bits
-
-    nb = len(single.block_bits)
-    k = -(-nb // mesh.size)
-    require(nb == k * mesh.size, f"{nb} blocks do not split evenly")
-    outs = stage("decode_all_shards", lambda: [
-        api.decode_block_span(single, s * k, (s + 1) * k, mesh.devices[s])
-        .reshape(-1) for s in range(mesh.size)])
-    back = stage("output_d2h", lambda: fetch(mesh, outs)[0][: data.size])
-    require(np.array_equal(back, data), "breakdown: decoded bytes != input")
-    del outs, back
-    # K4 alone per shard: the span and offsets of decode_block_span made
-    # once, outside the timing
-    from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
-    from huffman_tpu_torch.ops.decode import table_entries
-    bb = cfg.block_bytes
-    ends = np.cumsum(np.asarray(single.block_bits, np.int64))
-    starts = ends - single.block_bits
-    valid_all = api.valid_per_block(single.n_bytes, len(ends), bb)
-    tb = max(single.codebook.max_len, 1)
-    table = torch.from_numpy(table_entries(single.codebook, tb)).cuda()
-    for s in range(mesh.size):
-        b0, b1 = s * k, (s + 1) * k
-        w0 = int(starts[b0] >> 5)
-        span = torch.from_numpy(np.ascontiguousarray(
-            single.stream_words[w0: -(-int(ends[b1 - 1]) // 32)])
-            .view(np.int32)).cuda()
-        wb = torch.from_numpy((starts[b0:b1] >> 5) - w0).cuda()
-        sh = torch.from_numpy((starts[b0:b1] & 31).astype(np.int32)).cuda()
-        va = torch.from_numpy(valid_all[b0:b1]).cuda()
-        shard_ms["dense_decode"].append(cuda_ms(lambda: k_decode.decode_blocks(
-            span, wb, sh, va, table, tb, bb), 3))
-    return {"phase": "sharded_breakdown", "bytes": int(data.size),
-            "shards": mesh.size, "capacity_words": cap, "ms": ms,
-            "shard_kernel_ms": shard_ms, "card": card}
 
 
 def phase_sharded(card: str, data: np.ndarray, exact, wide_blob: bytes,
@@ -1770,7 +1519,6 @@ def phase_sharded(card: str, data: np.ndarray, exact, wide_blob: bytes,
           "wall_s": walls, "single_device_wall_s": single_walls,
           "GBps": {k: data.size / 1e9 / v for k, v in walls.items()},
           "card": card})
-    emit(sharded_breakdown(codec, data, enc, card))
     return launches
 
 

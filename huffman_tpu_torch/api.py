@@ -24,6 +24,9 @@ package does off the TPU; on the CPU the kernel wrappers run their plain
 versions.  _kernel_path is the gate (the CPU tests patch it).  Nothing
 detects a device on its own: every function takes `device`.
 decode: offset scan -> K4 decode of every block (device) -> bytes.
+Every host-device copy of the codec goes through to_device and to_host,
+which count its bytes (utils/timing.copied), and each call's stages run
+in spans (utils/timing.span), recorded only under torch.profiler.
 
 Left out against the JAX package, as Mosaic machinery (ROADMAP.md): the
 speculative merge tree with its patch overlay (K1 has no merge tree) and
@@ -48,6 +51,8 @@ from .ops.cuda import pack2 as k_pack
 from .ops.decode import table_entries
 from .ops.encode import BITS_MASK, MISS_FLAG
 from .ops.scan import exclusive_bit_offsets
+from .utils import timing
+from .utils.timing import span
 
 if TYPE_CHECKING:
     from .models.base import CodebookModel
@@ -106,12 +111,49 @@ def _as_u8(data) -> np.ndarray:
     return np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
 
 
-def _from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on `device`.  Read-only arrays (views of bytes
-    objects) are fine: the tensor is only read."""
+def _host_tensor(arr) -> torch.Tensor:
+    """A CPU tensor over a host array's memory, no copy made.  Read-only
+    arrays (views of bytes objects) are fine: the tensor is only read."""
+    if isinstance(arr, torch.Tensor):
+        return arr
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
-        return torch.from_numpy(arr).to(device)
+        return torch.from_numpy(np.asarray(arr))
+
+
+def _count(kind: str, host: torch.Tensor, nbytes: int) -> None:
+    memory = "pinned" if host.is_pinned() else "pageable"
+    timing.copied[f"{kind}.{memory}"].n += nbytes
+
+
+def to_device(src, device=None, out: torch.Tensor | None = None,
+              non_blocking: bool = False) -> torch.Tensor:
+    """Copy a host array or CPU tensor to `device`, or into the tensor
+    `out`, and return the copy; every host-to-device copy of the codec
+    goes through here, its bytes counted in timing.copied by the host
+    memory's kind (pinned or pageable).  The count is made whatever the
+    device: on the CPU the copy is the codec's host/device boundary all
+    the same."""
+    host = _host_tensor(src)
+    _count("h2d", host, host.numel() * host.element_size())
+    if out is None:
+        return host.to(device, non_blocking=non_blocking)
+    return out.copy_(host, non_blocking=non_blocking)
+
+
+def to_host(src: torch.Tensor, out=None) -> np.ndarray:
+    """Copy a device tensor to host memory, into the host array or CPU
+    tensor `out` where given, and return the host array; every
+    device-to-host copy of the codec goes through here, counted as
+    to_device's are."""
+    if out is None:
+        host = src.cpu()
+        _count("d2h", host, host.numel() * host.element_size())
+        return host.numpy()
+    dst = _host_tensor(out)
+    _count("d2h", dst, src.numel() * src.element_size())
+    dst.copy_(src)
+    return dst.numpy()
 
 
 def valid_per_block(n_bytes: int, num_blocks: int, block_bytes: int,
@@ -130,9 +172,9 @@ def device_rows(arr: np.ndarray, n_rows: int, row_bytes: int,
     copy is made on the host."""
     n = arr.size
     rows = torch.empty(n_rows * row_bytes, dtype=torch.uint8, device=device)
-    rows[:n].copy_(_from_numpy(arr, torch.device("cpu")))
+    to_device(arr, out=rows[:n])
     rows[n:].zero_()
-    valid = _from_numpy(valid_per_block(n, n_rows, row_bytes), device)
+    valid = to_device(valid_per_block(n, n_rows, row_bytes), device)
     return rows.view(n_rows, row_bytes), valid
 
 
@@ -153,16 +195,17 @@ def stage_chunks(arr: np.ndarray, rows: torch.Tensor, chunk_bytes: int):
     host's copy of chunk i + 1 into the next buffer and that buffer's
     copy to the device.  A buffer is refilled only once its last copy has
     completed.  On the CPU the copies are plain, and no CUDA call is made.
+    Each chunk's host work runs in a span encode.stage.
     """
     n, total = arr.size, rows.numel()
     spans = [(lo, min(lo + chunk_bytes, total))
              for lo in range(0, total, chunk_bytes)]
     if rows.device.type != "cuda":
         for lo, hi in spans:
-            if lo < n:
-                rows[lo: min(hi, n)].copy_(
-                    _from_numpy(arr[lo: min(hi, n)], rows.device))
-            rows[max(lo, n): hi].zero_()
+            with span("encode.stage"):
+                if lo < n:
+                    to_device(arr[lo: min(hi, n)], out=rows[lo: min(hi, n)])
+                rows[max(lo, n): hi].zero_()
             yield lo, hi
         return
     compute = torch.cuda.current_stream(rows.device)
@@ -174,18 +217,19 @@ def stage_chunks(arr: np.ndarray, rows: torch.Tensor, chunk_bytes: int):
     copied = [None] * PINNED_RING
     for i, (lo, hi) in enumerate(spans):
         slot = i % PINNED_RING
-        if copied[slot] is not None:
-            copied[slot].synchronize()
-        with torch.cuda.stream(side):
-            if lo < n:
-                buf = ring[slot][: min(hi, n) - lo]
-                buf.copy_(_from_numpy(arr[lo: min(hi, n)],
-                                      torch.device("cpu")))
-                rows[lo: min(hi, n)].copy_(buf, non_blocking=True)
-            rows[max(lo, n): hi].zero_()
-            copied[slot] = torch.cuda.Event()
-            copied[slot].record(side)
-        compute.wait_event(copied[slot])
+        with span("encode.stage"):
+            if copied[slot] is not None:
+                copied[slot].synchronize()
+            with torch.cuda.stream(side):
+                if lo < n:
+                    buf = ring[slot][: min(hi, n) - lo]
+                    buf.copy_(_host_tensor(arr[lo: min(hi, n)]))
+                    to_device(buf, out=rows[lo: min(hi, n)],
+                              non_blocking=True)
+                rows[max(lo, n): hi].zero_()
+                copied[slot] = torch.cuda.Event()
+                copied[slot].record(side)
+            compute.wait_event(copied[slot])
         yield lo, hi
 
 
@@ -193,14 +237,14 @@ def codebook_tensors(cb: Codebook, device: torch.device):
     """The kernels' (256,) int32 codes (uint32 bit patterns) and lengths."""
     if cb.max_len > 24:
         raise ValueError(f"codebook has {cb.max_len}-bit codes; at most 24")
-    codes = _from_numpy(np.ascontiguousarray(cb.codes, np.uint32)
-                        .view(np.int32), device)
-    return codes, _from_numpy(np.ascontiguousarray(cb.lengths, np.int32),
-                              device)
+    codes = to_device(np.ascontiguousarray(cb.codes, np.uint32)
+                      .view(np.int32), device)
+    return codes, to_device(np.ascontiguousarray(cb.lengths, np.int32),
+                            device)
 
 
 def _codebook_for(blocks: torch.Tensor, n: int, cfg: CodecConfig) -> Codebook:
-    freqs = hist_ops.histogram(blocks, n).cpu().numpy()
+    freqs = to_host(hist_ops.histogram(blocks, n))
     return Codebook.from_frequencies_auto(freqs, cfg.max_code_len,
                                           cfg.narrow_tol)
 
@@ -227,7 +271,7 @@ def build_codebook(data, cfg: CodecConfig = DEFAULT_CONFIG, device="cuda",
     arr = _as_u8(data)
     device = torch.device(device)
     if sample_every > 1:
-        sample = _from_numpy(sample_rows(arr, cfg, sample_every), device)
+        sample = to_device(sample_rows(arr, cfg, sample_every), device)
         return _codebook_for(sample, sample.numel(), cfg)
     blocks, _ = device_blocks(arr, cfg, device)
     return _codebook_for(blocks, arr.size, cfg)
@@ -341,71 +385,96 @@ def encode_traced(data, cfg: CodecConfig = DEFAULT_CONFIG,
                   codebook: Codebook | None = None,
                   model: "CodebookModel | None" = None,
                   device="cuda") -> tuple[Encoded, EncodeTrace]:
-    """encode, and how it ran (EncodeTrace)."""
+    """encode, and how it ran (EncodeTrace).  Its stages run in spans
+    (utils/timing.py) under a root "encode": encode.sample,
+    encode.codebook, encode.upload, one encode.pass a pass over the blocks
+    (its children one encode.stage a staged chunk and encode.bits),
+    encode.rebuild, encode.pack and encode.stream."""
     arr = _as_u8(data)
     n = arr.size
     trace = EncodeTrace()
     if n == 0:
         return empty_encoded(cfg, codebook), trace
+    with span("encode", format="dense", bytes=n):
+        return _encode_traced(arr, cfg, codebook, model,
+                              torch.device(device), trace), trace
+
+
+def _encode_traced(arr: np.ndarray, cfg: CodecConfig,
+                   codebook: Codebook | None, model, device: torch.device,
+                   trace: EncodeTrace) -> Encoded:
+    n = arr.size
     if codebook is None and model is not None:
-        codebook = model.codebook_for(arr)
-    device = torch.device(device)
+        with span("encode.codebook"):
+            codebook = model.codebook_for(arr)
     kernel_path = _kernel_path(device)
     sampled = trace.sampled = (kernel_path and codebook is None
                                and n >= SAMPLE_MIN_BYTES)
-    cb = (codebook if codebook is not None
-          else build_codebook(arr, cfg, device, SAMPLE_EVERY) if sampled
-          else None)
+    cb = codebook
+    if sampled:
+        with span("encode.sample"):
+            sample = sample_rows(arr, cfg, SAMPLE_EVERY)
+        with span("encode.codebook"):
+            cb = _codebook_for(to_device(sample, device), sample.size, cfg)
+        del sample
     nb, bb = cfg.num_blocks(n), cfg.block_bytes
     # staging needs the codebook first: an exact one is built from the
     # whole input on the device
     staged = kernel_path and cb is not None and nb > CHUNK_BLOCKS
-    if staged:
-        rows = torch.empty(nb * bb, dtype=torch.uint8, device=device)
-        blocks = rows.view(nb, bb)
-        valid = _from_numpy(valid_per_block(n, nb, bb), device)
-    else:
-        blocks, valid = device_blocks(arr, cfg, device)
-        if cb is None:
+    with span("encode.upload"):
+        if staged:
+            rows = torch.empty(nb * bb, dtype=torch.uint8, device=device)
+            blocks = rows.view(nb, bb)
+            valid = to_device(valid_per_block(n, nb, bb), device)
+        else:
+            blocks, valid = device_blocks(arr, cfg, device)
+    if cb is None:
+        with span("encode.codebook"):
             cb = _codebook_for(blocks, n, cfg)
     while True:
         codes, lengths = codebook_tensors(cb, device)
         sched = (_cap_schedule(cfg, _kernel_mcl(cb), cb.est_bpb)
                  if kernel_path else [cfg.capacity_words])
         for cap in sched:
-            if staged and not trace.chunks:
-                streams, bits_raw, trace.chunks = _encode_staged(
-                    arr, rows, codes, lengths, valid, cap, bb)
-            else:
-                streams, bits_raw = k_encode.encode_blocks(
-                    blocks, codes, lengths, valid, cap)
-            trace.capacities_tried.append(cap)
-            # the host sync of a pass: the counts decide what comes next
-            # and feed the checks, the total and the container
-            raw = bits_raw.cpu().numpy()
-            missed = sampled and bool((raw.view(np.uint32) & MISS_FLAG).any())
-            if missed:
-                break
-            block_bits = block_bits_of(raw)
-            # counts are exact at any capacity: the speculative one held
-            # if no block needs more; the last one packs regardless
-            if int(block_bits.max()) <= cap * 32 or cap == sched[-1]:
-                break
+            with span("encode.pass", cap=cap):
+                if staged and not trace.chunks:
+                    streams, bits_raw, trace.chunks = _encode_staged(
+                        arr, rows, codes, lengths, valid, cap, bb)
+                else:
+                    streams, bits_raw = k_encode.encode_blocks(
+                        blocks, codes, lengths, valid, cap)
+                trace.capacities_tried.append(cap)
+                # the host sync of a pass: the counts decide what comes
+                # next and feed the checks, the total and the container
+                with span("encode.bits"):
+                    raw = to_host(bits_raw)
+                missed = sampled and bool((raw.view(np.uint32)
+                                           & MISS_FLAG).any())
+                if missed:
+                    break
+                block_bits = block_bits_of(raw)
+                # counts are exact at any capacity: the speculative one
+                # held if no block needs more; the last one packs regardless
+                if int(block_bits.max()) <= cap * 32 or cap == sched[-1]:
+                    break
         if not missed:
             break
         # a byte was seen only outside the sample: rebuild the codebook
         # from the exact histogram of the resident input and encode again
-        cb = _codebook_for(blocks, n, cfg)
+        with span("encode.rebuild"):
+            cb = _codebook_for(blocks, n, cfg)
         sampled, trace.rebuilt = False, True
-    check_overflow(block_bits, cfg)
-    total_bits = int(block_bits.astype(np.int64).sum())
-    bits = bits_raw & BITS_MASK
-    offsets = exclusive_bit_offsets(bits)
-    stream = k_pack.pack_blocks(streams, bits, offsets.word_base,
-                                offsets.bit_shift, cdiv(total_bits, 32))
-    return Encoded(stream_words=stream.cpu().numpy().view(np.uint32),
-                   total_bits=total_bits, block_bits=block_bits,
-                   codebook=cb, n_bytes=n, config=cfg), trace
+    with span("encode.pack"):
+        check_overflow(block_bits, cfg)
+        total_bits = int(block_bits.astype(np.int64).sum())
+        bits = bits_raw & BITS_MASK
+        offsets = exclusive_bit_offsets(bits)
+        stream = k_pack.pack_blocks(streams, bits, offsets.word_base,
+                                    offsets.bit_shift, cdiv(total_bits, 32))
+    with span("encode.stream"):
+        words = to_host(stream).view(np.uint32)
+    return Encoded(stream_words=words, total_bits=total_bits,
+                   block_bits=block_bits, codebook=cb, n_bytes=n, config=cfg)
 
 
 def encode_pipeline(blocks: torch.Tensor, codes: torch.Tensor,
@@ -420,7 +489,7 @@ def encode_pipeline(blocks: torch.Tensor, codes: torch.Tensor,
     offsets = exclusive_bit_offsets(bits)
     return k_pack.pack_blocks(streams, bits, offsets.word_base,
                               offsets.bit_shift,
-                              int(offsets.total_words)), bits_raw
+                              int(to_host(offsets.total_words))), bits_raw
 
 
 def _decode_blocks(stream_words: np.ndarray, word_base: torch.Tensor,
@@ -428,52 +497,63 @@ def _decode_blocks(stream_words: np.ndarray, word_base: torch.Tensor,
                    cb: Codebook, block_bytes: int) -> torch.Tensor:
     device = word_base.device
     tb = max(cb.max_len, 1)
-    table = _from_numpy(table_entries(cb, tb), device)
-    stream = _from_numpy(np.ascontiguousarray(stream_words, np.uint32)
-                         .view(np.int32), device)
-    return k_decode.decode_blocks(stream, word_base, bit_shift, valid, table,
-                                  tb, block_bytes)
+    with span("decode.upload"):
+        table = to_device(table_entries(cb, tb), device)
+        stream = to_device(np.ascontiguousarray(stream_words, np.uint32)
+                           .view(np.int32), device)
+    with span("decode.kernel"):
+        return k_decode.decode_blocks(stream, word_base, bit_shift, valid,
+                                      table, tb, block_bytes)
 
 
 def decode(enc: Encoded, device="cuda") -> np.ndarray:
-    """Decode every block on `device`.  Returns the uint8 bytes."""
+    """Decode every block on `device`.  Returns the uint8 bytes.  Its
+    stages run in spans under a root "decode": decode.offsets (the device
+    scan), decode.upload, decode.kernel and decode.output."""
     if enc.n_bytes == 0:
         return np.zeros(0, np.uint8)
-    device = torch.device(device)
-    bb = enc.config.block_bytes
-    nb = len(enc.block_bits)
-    bits = _from_numpy(np.ascontiguousarray(enc.block_bits, np.int32), device)
-    offsets = exclusive_bit_offsets(bits)
-    valid = _from_numpy(valid_per_block(enc.n_bytes, nb, bb), device)
-    out = _decode_blocks(enc.stream_words, offsets.word_base,
-                         offsets.bit_shift, valid, enc.codebook, bb)
-    return out.reshape(-1)[: enc.n_bytes].cpu().numpy()
+    with span("decode", format="dense", bytes=enc.n_bytes):
+        device = torch.device(device)
+        bb = enc.config.block_bytes
+        nb = len(enc.block_bits)
+        with span("decode.offsets"):
+            bits = to_device(np.ascontiguousarray(enc.block_bits, np.int32),
+                             device)
+            offsets = exclusive_bit_offsets(bits)
+            valid = to_device(valid_per_block(enc.n_bytes, nb, bb), device)
+        out = _decode_blocks(enc.stream_words, offsets.word_base,
+                             offsets.bit_shift, valid, enc.codebook, bb)
+        with span("decode.output"):
+            return to_host(out.reshape(-1)[: enc.n_bytes])
 
 
 def decode_block_span(enc: Encoded, b0: int, b1: int,
                       device) -> torch.Tensor:
     """K4 over blocks [b0, b1) alone: host offsets from the per-block bit
-    counts, and only the span of the stream that covers those blocks goes
-    to `device`.  Returns (b1 - b0, block_bytes) uint8 on `device`."""
+    counts (span decode.offsets), and only the span of the stream that
+    covers those blocks goes to `device`.  Returns (b1 - b0, block_bytes)
+    uint8 on `device`."""
     device = torch.device(device)
     bb = enc.config.block_bytes
-    bits = np.asarray(enc.block_bits, np.int64)
-    ends = np.cumsum(bits)
-    starts = ends - bits
-    word_base = starts >> 5
-    w0 = int(word_base[b0])
-    span = enc.stream_words[w0: cdiv(int(ends[b1 - 1]), 32)]
-    valid = valid_per_block(enc.n_bytes, len(bits), bb)[b0:b1]
-    return _decode_blocks(
-        span, _from_numpy(word_base[b0:b1] - w0, device),
-        _from_numpy((starts[b0:b1] & 31).astype(np.int32), device),
-        _from_numpy(valid, device), enc.codebook, bb)
+    with span("decode.offsets"):
+        bits = np.asarray(enc.block_bits, np.int64)
+        ends = np.cumsum(bits)
+        starts = ends - bits
+        word_base = starts >> 5
+        w0 = int(word_base[b0])
+        words = enc.stream_words[w0: cdiv(int(ends[b1 - 1]), 32)]
+        valid = valid_per_block(enc.n_bytes, len(bits), bb)[b0:b1]
+        word_base = to_device(word_base[b0:b1] - w0, device)
+        bit_shift = to_device((starts[b0:b1] & 31).astype(np.int32), device)
+        valid = to_device(valid, device)
+    return _decode_blocks(words, word_base, bit_shift, valid, enc.codebook,
+                          bb)
 
 
 def decode_range(enc: Encoded, start: int, stop: int,
                  device="cuda") -> np.ndarray:
     """Decode bytes [start, stop) by decoding only the blocks that cover
-    them (decode_block_span)."""
+    them (decode_block_span), under a root span "decode" with range=True."""
     if not 0 <= start <= stop <= enc.n_bytes:
         raise ValueError(f"range [{start}, {stop}) outside "
                          f"[0, {enc.n_bytes})")
@@ -481,8 +561,10 @@ def decode_range(enc: Encoded, start: int, stop: int,
         return np.zeros(0, np.uint8)
     bb = enc.config.block_bytes
     b0, b1 = start // bb, cdiv(stop, bb)
-    out = decode_block_span(enc, b0, b1, device)
-    return out.reshape(-1)[start - b0 * bb: stop - b0 * bb].cpu().numpy()
+    with span("decode", format="dense", range=True, bytes=stop - start):
+        out = decode_block_span(enc, b0, b1, device)
+        with span("decode.output"):
+            return to_host(out.reshape(-1)[start - b0 * bb: stop - b0 * bb])
 
 
 def roundtrip_ok(data, cfg: CodecConfig = DEFAULT_CONFIG,

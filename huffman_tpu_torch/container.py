@@ -38,6 +38,7 @@ from .api import Encoded
 from .codebook import Codebook
 from .config import CodecConfig, cdiv
 from .golden.wide_codec import MAXLEN, ROUNDS, TILE_BYTES
+from .utils.timing import span
 from .wide import WideEncoded
 
 MAGIC = b"HTZ1"
@@ -52,20 +53,30 @@ def overhead_bytes(num_blocks: int) -> int:
     return _HEADER.size + 256 + 4 * num_blocks
 
 
+def _crc(payload: bytes, checksum: bool) -> bytes:
+    with span("container.crc"):
+        return (struct.pack("<I", zlib.crc32(payload) & 0xFFFFFFFF)
+                if checksum else b"")
+
+
 def dumps(enc: Encoded, checksum: bool = True) -> bytes:
-    """Serialize an Encoded stream to container bytes."""
-    header = _HEADER.pack(MAGIC, VERSION, FLAG_CRC32 if checksum else 0,
-                          enc.n_bytes, enc.config.block_bytes,
-                          enc.config.max_code_len, enc.total_bits,
-                          len(enc.block_bits))
-    lens = np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
-    bbits = np.asarray(enc.block_bits, dtype=np.uint32).tobytes()
-    payload = np.ascontiguousarray(
-        enc.stream_words[: cdiv(enc.total_bits, 32)],
-        dtype=np.uint32).astype(">u4").tobytes()
-    crc = (struct.pack("<I", zlib.crc32(payload) & 0xFFFFFFFF)
-           if checksum else b"")
-    return header + lens + bbits + payload + crc
+    """Serialize an Encoded stream to container bytes, under a root span
+    "container.dumps" (children container.words, the payload's
+    big-endian swap; container.crc; container.join)."""
+    with span("container.dumps", format="dense", bytes=enc.n_bytes):
+        header = _HEADER.pack(MAGIC, VERSION, FLAG_CRC32 if checksum else 0,
+                              enc.n_bytes, enc.config.block_bytes,
+                              enc.config.max_code_len, enc.total_bits,
+                              len(enc.block_bits))
+        lens = np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
+        bbits = np.asarray(enc.block_bits, dtype=np.uint32).tobytes()
+        with span("container.words"):
+            payload = np.ascontiguousarray(
+                enc.stream_words[: cdiv(enc.total_bits, 32)],
+                dtype=np.uint32).astype(">u4").tobytes()
+        crc = _crc(payload, checksum)
+        with span("container.join"):
+            return header + lens + bbits + payload + crc
 
 
 def container_version(blob: bytes) -> int:
@@ -95,7 +106,8 @@ def _check_payload(blob: bytes, flags: int, pay_off: int,
     if len(blob) < pay_off + pay_len + 4:
         raise ValueError("truncated HTZ container (missing payload CRC)")
     want = struct.unpack_from("<I", blob, pay_off + pay_len)[0]
-    got = zlib.crc32(blob[pay_off: pay_off + pay_len]) & 0xFFFFFFFF
+    with span("container.crc"):
+        got = zlib.crc32(blob[pay_off: pay_off + pay_len]) & 0xFFFFFFFF
     if got != want:
         raise ValueError(
             f"HTZ payload CRC mismatch (stored {want:#010x}, computed "
@@ -103,11 +115,20 @@ def _check_payload(blob: bytes, flags: int, pay_off: int,
 
 
 def loads(blob: bytes) -> Encoded:
-    """Deserialize container bytes (version 1) back to an Encoded stream."""
+    """Deserialize container bytes (version 1) back to an Encoded stream,
+    under a root span "container.loads" (children container.crc and
+    container.words, the payload's swap to host order)."""
     _, ver, flags, n_bytes, block_bytes, max_code_len, total_bits, nb = \
         _header(blob)
     if ver != VERSION:
         raise ValueError(f"unsupported container version {ver}")
+    with span("container.loads", format="dense", bytes=n_bytes):
+        return _loads(blob, flags, n_bytes, block_bytes, max_code_len,
+                      total_bits, nb)
+
+
+def _loads(blob: bytes, flags: int, n_bytes: int, block_bytes: int,
+           max_code_len: int, total_bits: int, nb: int) -> Encoded:
     pay_off = overhead_bytes(nb)
     n_words = cdiv(total_bits, 32)
     _check_payload(blob, flags, pay_off, 4 * n_words)
@@ -115,8 +136,9 @@ def loads(blob: bytes) -> Encoded:
     lens = np.frombuffer(blob, dtype=np.uint8, count=256, offset=off)
     block_bits = np.frombuffer(blob, dtype=np.uint32, count=nb,
                                offset=off + 256).astype(np.int32)
-    words = np.frombuffer(blob, dtype=">u4", count=n_words,
-                          offset=pay_off).astype(np.uint32)
+    with span("container.words"):
+        words = np.frombuffer(blob, dtype=">u4", count=n_words,
+                              offset=pay_off).astype(np.uint32)
     return Encoded(stream_words=words, total_bits=total_bits,
                    block_bits=block_bits,
                    codebook=Codebook.from_lengths(lens.astype(np.int32)),
@@ -126,28 +148,43 @@ def loads(blob: bytes) -> Encoded:
 
 
 def dumps_wide(enc: WideEncoded, checksum: bool = True) -> bytes:
-    """Serialize a WideEncoded stream (container version 3)."""
+    """Serialize a WideEncoded stream (container version 3), under a root
+    span "container.dumps" (children container.words, the payload's word
+    copy; container.crc; container.join)."""
     nt = len(enc.tile_words)
     bases = np.asarray(enc.bases)
     if bases.shape != (nt, ROUNDS):
         raise ValueError("bases shape mismatch")
-    header = _HEADER.pack(MAGIC, WIDE_VERSION, FLAG_CRC32 if checksum else 0,
-                          enc.n_bytes, TILE_BYTES, enc.config.max_code_len,
-                          int(enc.payload_words.size) * 32, nt)
-    lens = np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
-    counts = np.asarray(enc.tile_words, dtype="<u4").tobytes()
-    payload = np.ascontiguousarray(enc.payload_words, dtype="<u4").tobytes()
-    crc = (struct.pack("<I", zlib.crc32(payload) & 0xFFFFFFFF)
-           if checksum else b"")
-    return (header + lens + counts + bases.astype("<u2").tobytes() + payload
-            + crc)
+    with span("container.dumps", format="wide", bytes=enc.n_bytes):
+        header = _HEADER.pack(MAGIC, WIDE_VERSION,
+                              FLAG_CRC32 if checksum else 0, enc.n_bytes,
+                              TILE_BYTES, enc.config.max_code_len,
+                              int(enc.payload_words.size) * 32, nt)
+        lens = np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
+        counts = np.asarray(enc.tile_words, dtype="<u4").tobytes()
+        with span("container.words"):
+            payload = np.ascontiguousarray(enc.payload_words,
+                                           dtype="<u4").tobytes()
+        crc = _crc(payload, checksum)
+        with span("container.join"):
+            return (header + lens + counts + bases.astype("<u2").tobytes()
+                    + payload + crc)
 
 
 def loads_wide(blob: bytes) -> WideEncoded:
-    """Deserialize container version 3 to a WideEncoded stream.  The tile
-    size and the code-length cap are checked: either out of range would
-    misdecode without an error."""
+    """Deserialize container version 3 to a WideEncoded stream, under a
+    root span "container.loads" (children container.crc and
+    container.words, the payload's word copy).  The tile size and the
+    code-length cap are checked: either out of range would misdecode
+    without an error."""
     _, ver, flags, n_bytes, tile, max_code_len, bits, nt = _header(blob)
+    with span("container.loads", format="wide", bytes=n_bytes):
+        return _loads_wide(blob, ver, flags, n_bytes, tile, max_code_len,
+                           bits, nt)
+
+
+def _loads_wide(blob: bytes, ver: int, flags: int, n_bytes: int, tile: int,
+                max_code_len: int, bits: int, nt: int) -> WideEncoded:
     if ver != WIDE_VERSION:
         raise ValueError(f"not a version-{WIDE_VERSION} (wide) HTZ container")
     if tile != TILE_BYTES:
@@ -171,8 +208,9 @@ def loads_wide(blob: bytes) -> WideEncoded:
     off += 4 * nt
     bases = np.frombuffer(blob, dtype="<u2", count=nt * ROUNDS,
                           offset=off).astype(np.int32).reshape(nt, ROUNDS)
-    words = np.frombuffer(blob, dtype="<u4", count=n_words,
-                          offset=pay_off).astype(np.uint32)
+    with span("container.words"):
+        words = np.frombuffer(blob, dtype="<u4", count=n_words,
+                              offset=pay_off).astype(np.uint32)
     return WideEncoded(payload_words=words, tile_words=counts, bases=bases,
                        codebook=Codebook.from_lengths(lens.astype(np.int32)),
                        n_bytes=n_bytes,

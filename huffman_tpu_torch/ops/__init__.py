@@ -3,13 +3,9 @@
 ops/{encode,pack,decode,wide}.py hold the plain PyTorch version of each
 kernel; ops/cuda/ holds the wrappers that launch the hand-written CUDA
 kernels (csrc/) on CUDA tensors and take the plain version only for CPU
-tensors.
+tensors.  Counter (utils/timing.py) counts their launches and plain calls.
 """
 
+from ..utils.timing import Counter
 
-class Counter:
-    """A count that a run resets and reads: kernel launches, or calls of a
-    plain version on CUDA tensors (which the main path never makes)."""
-
-    def __init__(self) -> None:
-        self.n = 0
+__all__ = ["Counter"]

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..api import device_rows, to_host
 from ..utils.device import probe_devices
 
 
@@ -104,7 +105,6 @@ def put_global(arr: np.ndarray, n_rows: int, row_bytes: int, mesh: Mesh):
     slice of `arr` (api.device_rows: no padded copy on the host).  Returns
     per shard the (rows, valid byte counts) on its device, or (None, None)
     for another process's shard."""
-    from ..api import device_rows
     k = n_rows // mesh.size
     rows, valid = [None] * mesh.size, [None] * mesh.size
     for s in mesh.local_shards:
@@ -153,8 +153,7 @@ def fetch(mesh: Mesh, parts) -> tuple[np.ndarray, np.ndarray]:
     offs = np.concatenate([[0], np.cumsum(sizes)])
     flat = np.empty(int(offs[-1]), dtype)
     for s in local:
-        torch.from_numpy(flat[offs[s]: offs[s + 1]]).copy_(
-            parts[s].reshape(-1))
+        to_host(parts[s].reshape(-1), out=flat[offs[s]: offs[s + 1]])
     if mesh.world > 1:
         def span(shards):
             return (slice(int(offs[shards[0]]), int(offs[shards[-1] + 1]))

@@ -47,6 +47,7 @@ from ..ops.cuda import encode as k_encode
 from ..ops.cuda import pack2 as k_pack
 from ..ops.encode import BITS_MASK
 from ..ops.scan import exclusive_bit_offsets
+from ..utils.timing import span
 from .mesh import Mesh, allreduce_sum, fetch, pad_blocks_for_mesh, put_global
 
 
@@ -57,11 +58,12 @@ def histogram_sharded(mesh: Mesh):
     (256,) int64 array."""
 
     def _hist(d_blocks, d_valid) -> np.ndarray:
-        parts = [hist_ops.histogram(d_blocks[s], int(d_valid[s].sum()))
+        parts = [hist_ops.histogram(d_blocks[s],
+                                    int(api.to_host(d_valid[s].sum())))
                  for s in mesh.local_shards]
         total = np.zeros(256, np.int64)
         for h in parts:
-            total += h.cpu().numpy()
+            total += api.to_host(h)
         return allreduce_sum(total, mesh)
 
     return _hist
@@ -159,34 +161,53 @@ class ShardedCodec:
         decision the same in every process, which all hold every count.
         Phase 2 packs each shard at its global bit phase, and
         assemble_dense ORs one seam word per boundary.  A given codebook
-        that lacks a code for some input byte raises ValueError.
+        that lacks a code for some input byte raises ValueError.  The
+        stages run in spans under a root "encode": encode.upload,
+        encode.codebook, one encode.pass a capacity (phase 1 and the bit
+        counts' fetch), encode.bases, encode.pack (phase 2), encode.stream
+        (the slices' fetch) and encode.assemble.
         """
         cfg = self.cfg
         arr, nb = self.prepare(data)
         n = arr.size
         if n == 0:
             return api.empty_encoded(cfg, codebook)
-        d_blocks, d_valid = self.shard_inputs(arr, nb)
-        cb = codebook if codebook is not None else self._codebook(d_blocks,
-                                                                  d_valid)
+        with span("encode", format="dense", bytes=n, shards=self.mesh.size):
+            return self._encode(arr, nb, codebook)
+
+    def _encode(self, arr: np.ndarray, nb: int,
+                codebook: Codebook | None) -> api.Encoded:
+        cfg, mesh, n = self.cfg, self.mesh, arr.size
+        with span("encode.upload"):
+            d_blocks, d_valid = self.shard_inputs(arr, nb)
+        if codebook is None:
+            with span("encode.codebook"):
+                codebook = self._codebook(d_blocks, d_valid)
+        cb = codebook
         sched = (api._cap_schedule(cfg, api._kernel_mcl(cb), cb.est_bpb)
-                 if api._kernel_path(self.mesh.devices[0])
+                 if api._kernel_path(mesh.devices[0])
                  else [cfg.capacity_words])
         for cap in sched:
-            streams, bits_raw = encode_phase1(self.mesh, d_blocks, d_valid,
-                                              cb, cap)
-            block_bits = api.block_bits_of(fetch(self.mesh, bits_raw)[0])
+            with span("encode.pass", cap=cap):
+                streams, bits_raw = encode_phase1(mesh, d_blocks, d_valid,
+                                                  cb, cap)
+                block_bits = api.block_bits_of(fetch(mesh, bits_raw)[0])
             if int(block_bits.max()) <= cap * 32 or cap == sched[-1]:
                 break
-        api.check_overflow(block_bits, cfg)
-        shard_bits, shard_base = shard_bases(block_bits, self.mesh)
-        total_bits = int(shard_bits.sum())
-        slices, used = pack_phase2(self.mesh, streams, bits_raw, shard_bits,
-                                   shard_base)
-        flat, offs = fetch(self.mesh, slices)
-        stream = assemble_dense([flat[offs[s]: offs[s + 1]]
-                                 for s in range(self.mesh.size)],
-                                shard_base >> 5, used, cdiv(total_bits, 32))
+        with span("encode.bases"):
+            api.check_overflow(block_bits, cfg)
+            shard_bits, shard_base = shard_bases(block_bits, mesh)
+            total_bits = int(shard_bits.sum())
+        with span("encode.pack"):
+            slices, used = pack_phase2(mesh, streams, bits_raw, shard_bits,
+                                       shard_base)
+        with span("encode.stream"):
+            flat, offs = fetch(mesh, slices)
+        with span("encode.assemble"):
+            stream = assemble_dense([flat[offs[s]: offs[s + 1]]
+                                     for s in range(mesh.size)],
+                                    shard_base >> 5, used,
+                                    cdiv(total_bits, 32))
         return api.Encoded(stream_words=stream, total_bits=total_bits,
                            block_bits=block_bits[: cfg.num_blocks(n)],
                            codebook=cb, n_bytes=n, config=cfg)
@@ -195,18 +216,25 @@ class ShardedCodec:
         """Sharded dense decode: each shard runs K4 over its own blocks,
         with only the span of the stream that covers them
         (api.decode_block_span); the shards' bytes land in order in one
-        host array (mesh.fetch)."""
+        host array (mesh.fetch).  Spans: under a root "decode", one
+        decode.shard a shard (decode_block_span's spans under it) and
+        decode.output (the fetch)."""
         if enc.n_bytes == 0:
             return np.zeros(0, np.uint8)
         nb = len(enc.block_bits)
         k = cdiv(nb, self.mesh.size)
-        outs = [None] * self.mesh.size
-        for s in self.mesh.local_shards:
-            b0, b1 = s * k, min(nb, (s + 1) * k)
-            outs[s] = (api.decode_block_span(enc, b0, b1,
-                                             self.mesh.devices[s]).reshape(-1)
-                       if b0 < b1 else torch.zeros(0, dtype=torch.uint8))
-        return fetch(self.mesh, outs)[0][: enc.n_bytes]
+        with span("decode", format="dense", bytes=enc.n_bytes,
+                  shards=self.mesh.size):
+            outs = [None] * self.mesh.size
+            for s in self.mesh.local_shards:
+                b0, b1 = s * k, min(nb, (s + 1) * k)
+                dev = self.mesh.devices[s]
+                with span("decode.shard", shard=s, device=str(dev)):
+                    outs[s] = (api.decode_block_span(enc, b0, b1, dev)
+                               .reshape(-1) if b0 < b1
+                               else torch.zeros(0, dtype=torch.uint8))
+            with span("decode.output"):
+                return fetch(self.mesh, outs)[0][: enc.n_bytes]
 
     def encode_wide(self, data,
                     codebook: Codebook | None = None) -> wide.WideEncoded:
@@ -216,28 +244,42 @@ class ShardedCodec:
         tiles: the tile count is padded to a multiple of the mesh size and
         each shard runs wide.encode_substreams (K5, schedule, K7) on its
         tile rows.  Padding tiles hold no bytes, so they schedule no pulls
-        and no payload; they are dropped."""
+        and no payload; they are dropped.  Spans: under a root "encode",
+        encode.upload, encode.codebook, one encode.shard a shard
+        (encode_substreams' spans under it) and encode.stream."""
         cfg = self.cfg
         if cfg.max_code_len > MAXLEN:
             raise ValueError("wide format requires max_code_len <= 12")
         arr = api._as_u8(data)
         n = arr.size
+        with span("encode", format="wide", bytes=n, shards=self.mesh.size):
+            return self._encode_wide(arr, codebook)
+
+    def _encode_wide(self, arr: np.ndarray,
+                     codebook: Codebook | None) -> wide.WideEncoded:
+        cfg, mesh, n = self.cfg, self.mesh, arr.size
         nt = wide.num_tiles(n)
-        k = pad_blocks_for_mesh(nt, self.mesh) // self.mesh.size
-        d_rows, d_valid = put_global(arr, k * self.mesh.size * N_SUB,
-                                     SUB_BYTES, self.mesh)
-        cb = codebook if codebook is not None else self._codebook(d_rows,
-                                                                  d_valid)
+        k = pad_blocks_for_mesh(nt, mesh) // mesh.size
+        with span("encode.upload"):
+            d_rows, d_valid = put_global(arr, k * mesh.size * N_SUB,
+                                         SUB_BYTES, mesh)
+        if codebook is None:
+            with span("encode.codebook"):
+                codebook = self._codebook(d_rows, d_valid)
+        cb = codebook
         if cb.max_len > MAXLEN:
             raise ValueError(f"codebook has {cb.max_len}-bit codes; the wide "
                              f"format takes at most {MAXLEN}")
-        parts = {s: wide.encode_substreams(
-                     d_rows[s], d_valid[s], cb,
-                     int(np.clip(n - s * k * TILE_BYTES, 0, k * TILE_BYTES)))
-                 for s in self.mesh.local_shards}
-        payload, tile_words, bases = (
-            fetch(self.mesh, {s: p[i] for s, p in parts.items()})[0]
-            for i in range(3))
+        parts = {}
+        for s in mesh.local_shards:
+            with span("encode.shard", shard=s, device=str(mesh.devices[s])):
+                parts[s] = wide.encode_substreams(
+                    d_rows[s], d_valid[s], cb,
+                    int(np.clip(n - s * k * TILE_BYTES, 0, k * TILE_BYTES)))
+        with span("encode.stream"):
+            payload, tile_words, bases = (
+                fetch(mesh, {s: p[i] for s, p in parts.items()})[0]
+                for i in range(3))
         bases = bases.reshape(-1, ROUNDS)
         if tile_words[nt:].any() or bases[nt:].any():
             raise RuntimeError("a padding tile scheduled pulls")
@@ -247,15 +289,20 @@ class ShardedCodec:
     def decode_wide(self, enc: wide.WideEncoded) -> np.ndarray:
         """Sharded wide decode: each shard runs K8 over its own tiles, with
         only their payload span (wide._decode_tiles); fewer tiles than
-        shards leave the last shards idle."""
+        shards leave the last shards idle.  Spans as decode's."""
         if enc.n_bytes == 0:
             return np.zeros(0, np.uint8)
         nt = len(enc.tile_words)
         k = cdiv(nt, self.mesh.size)
-        outs = [None] * self.mesh.size
-        for s in self.mesh.local_shards:
-            t0, t1 = s * k, min(nt, (s + 1) * k)
-            outs[s] = (wide._decode_tiles(enc, t0, t1,
-                                          self.mesh.devices[s]).reshape(-1)
-                       if t0 < t1 else torch.zeros(0, dtype=torch.uint8))
-        return fetch(self.mesh, outs)[0][: enc.n_bytes]
+        with span("decode", format="wide", bytes=enc.n_bytes,
+                  shards=self.mesh.size):
+            outs = [None] * self.mesh.size
+            for s in self.mesh.local_shards:
+                t0, t1 = s * k, min(nt, (s + 1) * k)
+                dev = self.mesh.devices[s]
+                with span("decode.shard", shard=s, device=str(dev)):
+                    outs[s] = (wide._decode_tiles(enc, t0, t1, dev)
+                               .reshape(-1) if t0 < t1
+                               else torch.zeros(0, dtype=torch.uint8))
+            with span("decode.output"):
+                return fetch(self.mesh, outs)[0][: enc.n_bytes]

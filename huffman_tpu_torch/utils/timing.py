@@ -1,18 +1,124 @@
-"""Timing and profiling harness (huffman_tpu/utils/timing.py).
+"""Timing and profiling (huffman_tpu/utils/timing.py), and the codec's own
+spans and counters.
 
 PyTorch launches return before the device finishes, so time_fn
 synchronizes the device around every run, where the JAX package calls
 jax.block_until_ready; on a CUDA device each run is timed with CUDA
-events.  profiler_trace wraps torch.profiler.
+events.
+
+span(name, **attrs) marks a stage of a codec call.  It records only while
+a torch.profiler session is active (an operator who profiles gets the
+spans; nothing else does), and then on the profiler's clock,
+time.time_ns(), so a span lines up with the device operations of the
+same trace.  It never opens a profiler range, so it stays out of the
+profiler's own event stream: a trace reader would take such a range's
+device-side mirror for a kernel.  Outside a session span returns one
+shared null context, at the cost of one attribute read.  spans() returns
+the records, clear() empties them.
+
+Counter is a count that a run resets and reads: kernel launches, calls of
+a plain version on CUDA tensors (ops/), and `copied`, the bytes that
+cross between host and device by direction and host memory kind
+("h2d.pageable", "h2d.pinned", "d2h.pageable", "d2h.pinned"; api.to_device
+and api.to_host count them).  A root span (one with no open parent in its
+thread) stores the copied counts' change over its life as its attribute
+"copied".
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import threading
 import time
 from typing import Any, Callable
 
 import torch
+import torch.autograd.profiler as _profiler
+
+
+class Counter:
+    """A count that a run resets and reads: kernel launches, calls of a
+    plain version on CUDA tensors (which the main path never makes), or
+    bytes copied."""
+
+    def __init__(self) -> None:
+        self.n = 0
+
+
+COPY_KINDS = ("h2d.pageable", "h2d.pinned", "d2h.pageable", "d2h.pinned")
+copied = {kind: Counter() for kind in COPY_KINDS}
+
+
+class Span:
+    """One recorded span: `parent` is the index in spans() of the span that
+    was open around it in its thread (None for a root), `call` the call id
+    that a root draws and its descendants share; times are time.time_ns()."""
+    __slots__ = ("name", "parent", "call", "start_ns", "end_ns", "attrs")
+
+    def __init__(self, name, parent, call, start_ns, attrs):
+        self.name, self.parent, self.call = name, parent, call
+        self.start_ns, self.end_ns, self.attrs = start_ns, None, attrs
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, parent={self.parent}, call={self.call}, "
+                f"{self.start_ns}..{self.end_ns}, {self.attrs})")
+
+
+_records: list[Span] = []
+_local = threading.local()
+_calls = itertools.count()
+_NULL = contextlib.nullcontext()
+
+
+class _Recording:
+    __slots__ = ("rec", "before")
+
+    def __init__(self, name: str, attrs: dict):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        if stack:
+            parent = stack[-1]
+            call = _records[parent].call
+            self.before = None
+        else:
+            parent, call = None, next(_calls)
+            self.before = {k: c.n for k, c in copied.items()}
+        self.rec = Span(name, parent, call, None, attrs)
+
+    def __enter__(self):
+        _local.stack.append(len(_records))
+        _records.append(self.rec)
+        self.rec.start_ns = time.time_ns()
+        return self.rec
+
+    def __exit__(self, *exc):
+        self.rec.end_ns = time.time_ns()
+        _local.stack.pop()
+        if self.before is not None:
+            self.rec.attrs["copied"] = {k: c.n - self.before[k]
+                                        for k, c in copied.items()}
+        return False
+
+
+def span(name: str, **attrs):
+    """A context that records a span `name` with `attrs` while a
+    torch.profiler session is active, and the shared null context
+    otherwise."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    return _Recording(name, attrs)
+
+
+def spans() -> list[Span]:
+    """The recorded spans, in the order they opened."""
+    return list(_records)
+
+
+def clear() -> None:
+    """Forget the recorded spans (between calls, with no span open)."""
+    _records.clear()
 
 
 def time_fn(fn: Callable[[], Any], iters: int = 10, warmup: int = 2,
@@ -53,22 +159,6 @@ def time_fn(fn: Callable[[], Any], iters: int = 10, warmup: int = 2,
         "median_ms": 1e3 * times[len(times) // 2],
         "iters": iters,
     }
-
-
-@contextlib.contextmanager
-def profiler_trace(log_dir: str | None):
-    """Optional torch.profiler trace of the host and, where there is one,
-    the CUDA device, written to log_dir for TensorBoard or Perfetto."""
-    if not log_dir:
-        yield
-        return
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
-        yield
 
 
 class HostTimer:

@@ -40,6 +40,7 @@ from .ops.cuda import wide_decode as k_decode
 from .ops.cuda import wide_emit as k_emit
 from .ops.cuda import wide_encode as k_sub
 from .ops.decode import table_entries
+from .utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,27 +92,33 @@ def payload_offsets(tile_words: torch.Tensor) -> tuple[torch.Tensor, int]:
     planes, through the offset scan's kernel on a CUDA device) and the
     payload length, which is a host sync."""
     offsets, total = k_scan.payload_offsets(tile_words)
-    return offsets, int(total)
+    return offsets, int(api.to_host(total))
 
 
 def encode_substreams(rows: torch.Tensor, valid: torch.Tensor,
                       cb: Codebook, n_bytes: int):
-    """K5 -> schedule -> offsets -> K7 on device-resident rows.  Returns
+    """K5 -> schedule -> offsets -> K7 on device-resident rows, in spans
+    encode.pass (K5 and its miss sync), encode.schedule (the schedule, the
+    offsets and the payload length's sync) and encode.emit.  Returns
     (payload (NW,) int32, tile_words (NT,) int32, bases (NT, ROUNDS) int32),
     all on the rows' device."""
     device = rows.device
     mcl = reader_mcl(cb)
-    codes, lengths = api.codebook_tensors(cb, device)
-    streams, bits, l2 = k_sub.sub_encode(rows, codes, lengths, valid,
-                                         slot_words(mcl))
-    if bool((bits < 0).any()):            # MISS_FLAG is the sign bit
-        raise ValueError("input contains symbols absent from the codebook")
-    nt = rows.shape[0] // N_SUB
-    tb = api._from_numpy(tile_bytes(n_bytes, 0, nt), device)
-    bases, tile_words, masks = k_emit.schedule_counts(l2, tb, mcl)
-    offsets, n_words = payload_offsets(tile_words)
-    payload = k_emit.emit_planes(streams, masks, bases, tile_words, offsets,
-                                 n_words)
+    with span("encode.pass", cap=slot_words(mcl)):
+        codes, lengths = api.codebook_tensors(cb, device)
+        streams, bits, l2 = k_sub.sub_encode(rows, codes, lengths, valid,
+                                             slot_words(mcl))
+        if bool(api.to_host((bits < 0).any())):  # MISS_FLAG: the sign bit
+            raise ValueError(
+                "input contains symbols absent from the codebook")
+    with span("encode.schedule"):
+        nt = rows.shape[0] // N_SUB
+        tb = api.to_device(tile_bytes(n_bytes, 0, nt), device)
+        bases, tile_words, masks = k_emit.schedule_counts(l2, tb, mcl)
+        offsets, n_words = payload_offsets(tile_words)
+    with span("encode.emit"):
+        payload = k_emit.emit_planes(streams, masks, bases, tile_words,
+                                     offsets, n_words)
     return payload, tile_words, bases
 
 
@@ -121,49 +128,66 @@ def encode_wide(data, cfg: CodecConfig = DEFAULT_CONFIG,
     """Encode into the wide format on `device`.  Without `codebook`, builds
     the exact per-stream codebook (device histogram, cfg.narrow_tol cap
     policy); an explicit codebook that lacks a code for some input byte
-    raises ValueError, as do codes longer than 12 bits."""
+    raises ValueError, as do codes longer than 12 bits.  Its stages run in
+    spans under a root "encode": encode.upload, encode.codebook,
+    encode_substreams' three and encode.stream."""
     arr = api._as_u8(data)
     n = arr.size
     if cfg.max_code_len > MAXLEN:
         raise ValueError("wide format requires max_code_len <= 12")
-    rows, valid = device_substreams(arr, torch.device(device))
-    cb = (codebook if codebook is not None
-          else api._codebook_for(rows, n, cfg))
-    if cb.max_len > MAXLEN:
-        raise ValueError(f"codebook has {cb.max_len}-bit codes; the wide "
-                         f"format takes at most {MAXLEN}")
-    payload, tile_words, bases = encode_substreams(rows, valid, cb, n)
-    return WideEncoded(payload.cpu().numpy().view(np.uint32),
-                       tile_words.cpu().numpy(), bases.cpu().numpy(), cb, n,
-                       cfg)
+    with span("encode", format="wide", bytes=n):
+        with span("encode.upload"):
+            rows, valid = device_substreams(arr, torch.device(device))
+        if codebook is None:
+            with span("encode.codebook"):
+                codebook = api._codebook_for(rows, n, cfg)
+        if codebook.max_len > MAXLEN:
+            raise ValueError(f"codebook has {codebook.max_len}-bit codes; "
+                             f"the wide format takes at most {MAXLEN}")
+        payload, tile_words, bases = encode_substreams(rows, valid, codebook,
+                                                       n)
+        with span("encode.stream"):
+            return WideEncoded(api.to_host(payload).view(np.uint32),
+                               api.to_host(tile_words), api.to_host(bases),
+                               codebook, n, cfg)
 
 
 def _decode_tiles(enc: WideEncoded, t0: int, t1: int,
                   device) -> torch.Tensor:
     """K8 over tiles [t0, t1) of a wide stream: only their payload span
-    goes to `device`.  Returns (t1 - t0, TILE_BYTES) uint8 on `device`."""
+    goes to `device`.  Returns (t1 - t0, TILE_BYTES) uint8 on `device`.
+    Spans decode.offsets (the host offsets and the per-tile tables),
+    decode.upload (the payload span and the decode table) and
+    decode.kernel."""
     device = torch.device(device)
-    tw = np.asarray(enc.tile_words, np.int64)
-    tile_start = np.concatenate([[0], np.cumsum(2 * tw)])
-    w0, w1 = int(tile_start[t0]), int(tile_start[t1])
-    span = np.ascontiguousarray(enc.payload_words[w0:w1], np.uint32)
     mcl = reader_mcl(enc.codebook)
-    return k_decode.decode_tiles(
-        api._from_numpy(span.view(np.int32), device),
-        api._from_numpy(tile_start[t0:t1] - w0, device),
-        api._from_numpy(tw[t0:t1].astype(np.int32), device),
-        api._from_numpy(np.ascontiguousarray(enc.bases[t0:t1], np.int32),
-                        device),
-        api._from_numpy(tile_bytes(enc.n_bytes, t0, t1), device),
-        api._from_numpy(table_entries(enc.codebook, mcl), device), mcl)
+    with span("decode.offsets"):
+        tw = np.asarray(enc.tile_words, np.int64)
+        tile_start = np.concatenate([[0], np.cumsum(2 * tw)])
+        w0, w1 = int(tile_start[t0]), int(tile_start[t1])
+        starts = api.to_device(tile_start[t0:t1] - w0, device)
+        words = api.to_device(tw[t0:t1].astype(np.int32), device)
+        bases = api.to_device(np.ascontiguousarray(enc.bases[t0:t1],
+                                                   np.int32), device)
+        nbytes = api.to_device(tile_bytes(enc.n_bytes, t0, t1), device)
+    with span("decode.upload"):
+        payload = api.to_device(np.ascontiguousarray(
+            enc.payload_words[w0:w1], np.uint32).view(np.int32), device)
+        table = api.to_device(table_entries(enc.codebook, mcl), device)
+    with span("decode.kernel"):
+        return k_decode.decode_tiles(payload, starts, words, bases, nbytes,
+                                     table, mcl)
 
 
 def decode_wide(enc: WideEncoded, device="cuda") -> np.ndarray:
-    """Decode every tile on `device`.  Returns the uint8 bytes."""
+    """Decode every tile on `device`, under a root span "decode" (ending
+    in decode.output).  Returns the uint8 bytes."""
     if enc.n_bytes == 0:
         return np.zeros(0, np.uint8)
-    out = _decode_tiles(enc, 0, len(enc.tile_words), device)
-    return out.reshape(-1)[: enc.n_bytes].cpu().numpy()
+    with span("decode", format="wide", bytes=enc.n_bytes):
+        out = _decode_tiles(enc, 0, len(enc.tile_words), device)
+        with span("decode.output"):
+            return api.to_host(out.reshape(-1)[: enc.n_bytes])
 
 
 def decode_wide_range(enc: WideEncoded, start: int, stop: int,
@@ -177,8 +201,11 @@ def decode_wide_range(enc: WideEncoded, start: int, stop: int,
     if start == stop:
         return np.zeros(0, np.uint8)
     t0, t1 = start // TILE_BYTES, cdiv(stop, TILE_BYTES)
-    out = _decode_tiles(enc, t0, t1, device).reshape(-1)
-    return out[start - t0 * TILE_BYTES: stop - t0 * TILE_BYTES].cpu().numpy()
+    with span("decode", format="wide", range=True, bytes=stop - start):
+        out = _decode_tiles(enc, t0, t1, device).reshape(-1)
+        with span("decode.output"):
+            return api.to_host(
+                out[start - t0 * TILE_BYTES: stop - t0 * TILE_BYTES])
 
 
 __all__ = ["WideEncoded", "encode_wide", "decode_wide", "decode_wide_range",

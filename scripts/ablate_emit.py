@@ -273,7 +273,7 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
         streams, _, l2 = k_sub.sub_encode(rows, codes, lengths, valid, slot)
         del rows, valid
         nt = l2.shape[0] // p_wide.N_SUB
-        tb = api._from_numpy(wide.tile_bytes(data.size, 0, nt), dev)
+        tb = torch.from_numpy(wide.tile_bytes(data.size, 0, nt)).to(dev)
         bases, tw = k_emit.schedule_counts(l2, tb, mcl)[:2]
         offs, n_words = wide.payload_offsets(tw)
 
