@@ -26,7 +26,9 @@ detects a device on its own: every function takes `device`.
 decode: offset scan -> K4 decode of every block (device) -> bytes.
 Every host-device copy of the codec goes through to_device and to_host,
 which count its bytes (utils/timing.copied), and each call's stages run
-in spans (utils/timing.span), recorded only under torch.profiler.
+in spans (utils/timing.span), recorded only under torch.profiler.  A copy
+of PINNED_MIN_BYTES or more from a CUDA device lands in a pinned host
+block that host_pool keeps from call to call (HostPool).
 
 Left out against the JAX package, as Mosaic machinery (ROADMAP.md): the
 speculative merge tree with its patch overlay (K1 has no merge tree) and
@@ -36,7 +38,9 @@ the pow2 block buckets, which only reuse compiles.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import warnings
+import weakref
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -69,6 +73,15 @@ CHUNK_BLOCKS = 16384
 # which keeps freed pinned blocks for the next call, so the ring is not
 # cached here.
 PINNED_RING = 2
+# A device-to-host copy of PINNED_MIN_BYTES (one staging chunk) or more
+# lands in a pinned host block that host_pool keeps from call to call;
+# smaller ones (bit counts, histograms, totals) go to fresh pageable
+# memory.  The pool pins at most PINNED_POOL_BYTES: the blocks of a 1 GiB
+# roundtrip (its 1 GiB output, its stream's 512 MiB) and of a caller that
+# holds two more outputs, so that a caller that keeps every result pins
+# no more of the host's memory than that, and copies as before past it.
+PINNED_MIN_BYTES = 16 * 1024 * 1024
+PINNED_POOL_BYTES = 4 * 1024**3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +139,83 @@ def _count(kind: str, host: torch.Tensor, nbytes: int) -> None:
     timing.copied[f"{kind}.{memory}"].n += nbytes
 
 
+def _pinned(nbytes: int) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+class HostPool:
+    """Host blocks that large device-to-host copies land in, kept from
+    call to call: a fresh pageable destination faults in its pages at
+    every call, and the CUDA driver stages a copy to pageable memory
+    through buffers of its own besides.
+
+    take(dtype, shape) hands out a host array over the smallest free block
+    that fits, or over a new one while the blocks stay within `limit`
+    bytes, and otherwise returns None: the caller then copies as before.
+    A block is free again once no array over it is left: each view of the
+    array handed out refers to that array (numpy makes a view's base the
+    first array up the chain whose base is no array, here a tensor), so
+    the pool's weak reference to it dies with the last of them.  A block
+    held is never handed out.  Blocks are kept for the process's life;
+    PyTorch's caching host allocator rounds a pinned request up to a
+    power of two, so a block is taken at that size.  `alloc(nbytes)` makes
+    a block (_pinned; the CPU tests pass a plain one).  The bytes asked
+    for are counted in timing.host_blocks as reused, new or declined."""
+
+    def __init__(self, limit: int, alloc=_pinned):
+        self.limit, self.alloc = limit, alloc
+        self.blocks: list[list] = []        # [block, weakref to its array]
+        self._lock = threading.Lock()
+
+    @property
+    def pinned_bytes(self) -> int:
+        return sum(block.numel() for block, _ in self.blocks)
+
+    def take(self, dtype: torch.dtype, shape: tuple
+             ) -> tuple[torch.Tensor, np.ndarray] | None:
+        """(a tensor, the host array) of `shape` and `dtype` over one
+        block, or None."""
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        size = 1 << (nbytes - 1).bit_length()
+        with self._lock:
+            free = [e for e in self.blocks
+                    if e[0].numel() >= nbytes and e[1]() is None]
+            if free:
+                entry = min(free, key=lambda e: e[0].numel())
+                kind = "reused"
+            elif self.pinned_bytes + size <= self.limit:
+                entry, kind = [self.alloc(size), None], "new"
+                self.blocks.append(entry)
+            else:
+                timing.host_blocks["declined"].n += nbytes
+                return None
+            timing.host_blocks[kind].n += nbytes
+            dst = entry[0][:nbytes].view(dtype).view(shape)
+            arr = dst.numpy()
+            entry[1] = weakref.ref(arr)
+            return dst, arr
+
+
+host_pool = HostPool(PINNED_POOL_BYTES)
+
+
+def _host_block_path(device: torch.device, nbytes: int) -> bool:
+    """Whether a device-to-host copy of nbytes from `device` asks host_pool
+    for a block: from a CUDA device, PINNED_MIN_BYTES or more.  The CPU
+    tests patch it."""
+    return device.type == "cuda" and nbytes >= PINNED_MIN_BYTES
+
+
+def host_block(dtype: torch.dtype, shape: tuple, device: torch.device
+               ) -> tuple[torch.Tensor, np.ndarray] | None:
+    """host_pool.take(dtype, shape) for a copy from `device` that
+    _host_block_path admits, else None."""
+    nbytes = int(np.prod(shape)) * dtype.itemsize
+    if not _host_block_path(device, nbytes):
+        return None
+    return host_pool.take(dtype, shape)
+
+
 def to_device(src, device=None, out: torch.Tensor | None = None,
               non_blocking: bool = False) -> torch.Tensor:
     """Copy a host array or CPU tensor to `device`, or into the tensor
@@ -145,11 +235,18 @@ def to_host(src: torch.Tensor, out=None) -> np.ndarray:
     """Copy a device tensor to host memory, into the host array or CPU
     tensor `out` where given, and return the host array; every
     device-to-host copy of the codec goes through here, counted as
-    to_device's are."""
+    to_device's are.  Without `out`, a large copy from a CUDA device lands
+    in a block of host_pool (host_block), any other in fresh memory."""
     if out is None:
-        host = src.cpu()
-        _count("d2h", host, host.numel() * host.element_size())
-        return host.numpy()
+        pooled = host_block(src.dtype, tuple(src.shape), src.device)
+        if pooled is None:
+            host = src.cpu()
+            _count("d2h", host, host.numel() * host.element_size())
+            return host.numpy()
+        dst, arr = pooled
+        _count("d2h", dst, dst.numel() * dst.element_size())
+        dst.copy_(src)
+        return arr
     dst = _host_tensor(out)
     _count("d2h", dst, src.numel() * src.element_size())
     dst.copy_(src)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..api import device_rows, to_host
+from ..api import device_rows, host_block, to_host
 from ..utils.device import probe_devices
 
 
@@ -132,10 +132,12 @@ def fetch(mesh: Mesh, parts) -> tuple[np.ndarray, np.ndarray]:
     """Every shard's 1-D tensor, concatenated in shard order into one host
     array, and the (size + 1,) int64 offsets of the shards in it.  parts[s]
     is shard s's tensor where this process owns shard s (anything
-    elsewhere); each is copied from its device straight into its place.
-    With several processes, each process's shards (consecutive in the
-    mesh) are all-gathered over the process group, so every process gets
-    the whole array."""
+    elsewhere); each is copied from its device straight into its place:
+    into a block of api.host_pool where the parts are on CUDA devices and
+    the whole reaches api.PINNED_MIN_BYTES (api.host_block), else into
+    fresh memory.  With several processes, each process's shards
+    (consecutive in the mesh) are all-gathered over the process group, so
+    every process gets the whole array."""
     local = mesh.local_shards
     sizes = np.zeros(mesh.size, np.int64)
     for s in local:
@@ -151,7 +153,9 @@ def fetch(mesh: Mesh, parts) -> tuple[np.ndarray, np.ndarray]:
                 sizes[s] = n
             dtype = dtype or dt
     offs = np.concatenate([[0], np.cumsum(sizes)])
-    flat = np.empty(int(offs[-1]), dtype)
+    pooled = (host_block(parts[local[0]].dtype, (int(offs[-1]),),
+                         parts[local[0]].device) if local else None)
+    flat = np.empty(int(offs[-1]), dtype) if pooled is None else pooled[1]
     for s in local:
         to_host(parts[s].reshape(-1), out=flat[offs[s]: offs[s + 1]])
     if mesh.world > 1:

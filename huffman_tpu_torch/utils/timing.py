@@ -20,9 +20,11 @@ Counter is a count that a run resets and reads: kernel launches, calls of
 a plain version on CUDA tensors (ops/), and `copied`, the bytes that
 cross between host and device by direction and host memory kind
 ("h2d.pageable", "h2d.pinned", "d2h.pageable", "d2h.pinned"; api.to_device
-and api.to_host count them).  A root span (one with no open parent in its
-thread) stores the copied counts' change over its life as its attribute
-"copied".
+and api.to_host count them), and `host_blocks`, the bytes of the copies
+that asked api.host_pool for a pinned host block, by what they got
+("reused", "new", "declined": left to pageable memory).  A root span (one
+with no open parent in its thread) stores both counts' change over its
+life as its attributes "copied" and "host_blocks".
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ class Counter:
 
 COPY_KINDS = ("h2d.pageable", "h2d.pinned", "d2h.pageable", "d2h.pinned")
 copied = {kind: Counter() for kind in COPY_KINDS}
+HOST_BLOCK_KINDS = ("reused", "new", "declined")
+host_blocks = {kind: Counter() for kind in HOST_BLOCK_KINDS}
+_ROOT_COUNTS = {"copied": copied, "host_blocks": host_blocks}
 
 
 class Span:
@@ -84,7 +89,8 @@ class _Recording:
             self.before = None
         else:
             parent, call = None, next(_calls)
-            self.before = {k: c.n for k, c in copied.items()}
+            self.before = {name: {k: c.n for k, c in counts.items()}
+                           for name, counts in _ROOT_COUNTS.items()}
         self.rec = Span(name, parent, call, None, attrs)
 
     def __enter__(self):
@@ -97,8 +103,9 @@ class _Recording:
         self.rec.end_ns = time.time_ns()
         _local.stack.pop()
         if self.before is not None:
-            self.rec.attrs["copied"] = {k: c.n - self.before[k]
-                                        for k, c in copied.items()}
+            for name, counts in _ROOT_COUNTS.items():
+                self.rec.attrs[name] = {k: c.n - self.before[name][k]
+                                        for k, c in counts.items()}
         return False
 
 

@@ -333,6 +333,7 @@ def test_recorder_nests_by_thread_and_closes_on_error(kernel_path):
     with profile(activities=[ProfilerActivity.CPU]):
         with timing.span("a", bytes=3):
             timing.copied["h2d.pinned"].n += 5
+            timing.host_blocks["reused"].n += 7
             with timing.span("a.b", cap=1):
                 timing.copied["d2h.pageable"].n += 2
                 t = threading.Thread(target=other_thread)
@@ -349,7 +350,8 @@ def test_recorder_nests_by_thread_and_closes_on_error(kernel_path):
     assert len({r.call for r in recs}) == 4 and recs[0].call == recs[1].call
     assert recs[0].attrs == {"bytes": 3, "copied": {
         "h2d.pageable": 0, "h2d.pinned": 5, "d2h.pageable": 2,
-        "d2h.pinned": 0}}
+        "d2h.pinned": 0}, "host_blocks": {"reused": 7, "new": 0,
+                                          "declined": 0}}
     assert recs[1].attrs == {"cap": 1}
     assert all(r.end_ns >= r.start_ns for r in recs)
     timing.clear()

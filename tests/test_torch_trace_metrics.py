@@ -29,6 +29,10 @@ def _copied(h2d_pageable=0, h2d_pinned=0, d2h_pageable=0, d2h_pinned=0):
             "d2h.pageable": d2h_pageable, "d2h.pinned": d2h_pinned}
 
 
+def _blocks(reused=0, new=0, declined=0):
+    return {"reused": reused, "new": new, "declined": declined}
+
+
 def _calls():
     """Six calls as (root name, (start, end) s, attrs, children), the last
     outside the window."""
@@ -48,7 +52,8 @@ def _calls():
          [("container.crc", (12.5, 12.6)),
           ("container.words", (12.6, 12.75))]),
         ("decode", (13.0, 14.0), {"bytes": GIB, "copied": _copied(
-            h2d_pageable=50, d2h_pinned=150)},
+            h2d_pageable=50, d2h_pinned=150), "host_blocks": _blocks(
+            reused=150, new=40, declined=10)},
          [("decode.output", (13.5, 14.0))]),
         ("encode", (25.0, 26.0), {"bytes": GIB, "copied": _copied(
             h2d_pageable=10**9)},
@@ -106,6 +111,7 @@ EXPECT = {
     "pageable_share.encode": 100 * (100 + 100 + 500) / (100 + 300 + 100
                                                          + 500),
     "pageable_share.decode": 100 * 50 / (50 + 150),
+    "pinned_reuse_share.decode": 100 * 150 / (150 + 40 + 10),
     "idle_share.encode_call": 100 * (1 - 0.5 / 1.5),
     "idle_share.decode_call": 100 * (1 - 0.25 / 1.0),
 }
@@ -154,3 +160,14 @@ def test_reader_finds_nothing(name, monkeypatch):
     assert read(_run(1, trace=False)) is None
     monkeypatch.delattr(timing, "spans")
     assert read(_run(1)) is None
+
+
+def test_pinned_reuse_share_without_the_pool(monkeypatch):
+    """A program whose roots carry no host_blocks, as before the pool."""
+    recs = _records()
+    for r in recs:
+        r.attrs.pop("host_blocks", None)
+    monkeypatch.setattr(timing, "spans", lambda: list(recs))
+    assert harness.reader("pinned_reuse_share.decode")(_run(1)) is None
+    assert harness.reader("pageable_share.decode")(_run(1)) == \
+        pytest.approx(EXPECT["pageable_share.decode"])
