@@ -64,6 +64,18 @@ Phases, each printing one JSON line:
                Then main_parent_flow (api.encode as the parent ran it,
                with no sampling, chunks or speculation, in turns with the
                change).
+  4b. device - card-resident data: the payload swap and CRC-32 kernel
+               (csrc/crc32.cu) against its plain version and zlib.crc32,
+               both ways, at the 1 GiB stream's size (the main input's
+               stream words) and on 0 to 1,048,579 words at a 4-byte
+               offset, with its time beside its bound at that size and at a
+               sixteenth of it; then the main input as a CUDA tensor through
+               api.encode_traced -> container.dumps_device ->
+               container.loads_device -> api.decode, its container equal
+               to phase 4's host container byte for byte, its output equal
+               to the input on the card, the launches of each kernel and
+               the bytes that crossed (under 1% of the input), and each
+               stage's wall.
   5. wide_kernels - each wide kernel (K5 substream encode, the schedule and
                K7 emit, K8 decode) against its plain version, exactly: at
                64 MiB (256 tiles) of the main profile with CUDA event times;
@@ -1067,6 +1079,160 @@ def phase_main(card: str, data: np.ndarray) -> dict:
     return launches, enc, exact, {"encode": enc_s, "decode": dec_s}
 
 
+def crc_work(n_words: int) -> tuple:
+    """(bytes, operations) of the swap and CRC over n_words: each word read
+    and written once; the table lookups and shifts are not counted (the
+    card's bound is its memory)."""
+    return 8 * n_words, 0
+
+
+def phase_device(card: str, data: np.ndarray, host_enc, errs: dict,
+                 times: dict) -> dict:
+    """The payload swap and CRC kernel, then the main input through the
+    card-resident path (api.encode of a CUDA tensor, dumps_device,
+    loads_device, api.decode).  Returns the kernels' launches on that
+    path."""
+    import zlib
+
+    from huffman_tpu_torch import api, container
+    from huffman_tpu_torch.ops import crc32 as p_crc
+    from huffman_tpu_torch.ops.cuda import crc32 as k_crc
+    from huffman_tpu_torch.utils import timing
+
+    dev = torch.device("cuda")
+    cases = 0
+
+    def crc_of(t: torch.Tensor) -> int:
+        return int(t.cpu().numpy().view(np.uint32)[0])
+
+    def check(name: str, host_words: np.ndarray, src: torch.Tensor) -> None:
+        """Both directions on src (host_words on the card) against the
+        plain version and zlib."""
+        nonlocal cases
+        want = zlib.crc32(host_words.astype(">u4").tobytes())
+        w = src.numel()
+        out, crc = (torch.empty(w, dtype=torch.int32, device=dev),
+                    torch.empty(1, dtype=torch.int32, device=dev))
+        k_crc.swap_crc32(src, out, crc, True)
+        p_out, p_crc_t = torch.empty_like(out), torch.empty_like(crc)
+        p_crc.swap_crc32_plain(src, p_out, p_crc_t, True)
+        require(torch.equal(out, p_out), f"crc32 {name}: payload != plain")
+        require(crc_of(crc) == crc_of(p_crc_t) == want,
+                f"crc32 {name}: {crc_of(crc):#x}, plain "
+                f"{crc_of(p_crc_t):#x}, zlib {want:#x}")
+        back = torch.empty_like(out)
+        k_crc.swap_crc32(out, back, crc, False)
+        require(torch.equal(back, src), f"crc32 {name}: loads way != input")
+        require(crc_of(crc) == want, f"crc32 {name}: loads way's CRC")
+        cases += 1
+
+    main_words = host_enc.stream_words
+    rng = np.random.default_rng(5)
+    for w in (0, 1, 31, 1023, 1024, 1025, 1024 * 1024 + 3):
+        words = rng.integers(0, 2**32, w, dtype=np.uint64).astype(np.uint32)
+        # at a 4-byte offset in a byte buffer, as a container's payload
+        raw = torch.empty(4 * w + 8, dtype=torch.uint8, device=dev)
+        src = raw[4: 4 + 4 * w].view(torch.int32)
+        src.copy_(torch.from_numpy(words.view(np.int32)).to(dev))
+        check(f"words_{w}_offset4", words, src)
+    src = torch.from_numpy(main_words.view(np.int32)).to(dev)
+    check("main_stream", main_words, src)
+    errs["crc32"] = 0
+    n_main = src.numel()
+    out = torch.empty_like(src)
+    crc = torch.empty(1, dtype=torch.int32, device=dev)
+    ms = {}
+    for name, w in (("main", n_main), ("sixteenth", n_main // 16)):
+        a, b = src[:w], out[:w]
+        # the loads way writes a's words back over a
+        ms[name] = {
+            "dumps_way": graph_ms(lambda: k_crc.swap_crc32(a, b, crc, True),
+                                  5),
+            "loads_way": graph_ms(lambda: k_crc.swap_crc32(b, a, crc, False),
+                                  5)}
+    plain_ms = cuda_ms(lambda: p_crc.swap_crc32_plain(
+        src[: n_main // 16], out[: n_main // 16], crc, True), 1)
+    times["crc32"] = (ms["sixteenth"]["dumps_way"], plain_ms,
+                      crc_work(n_main // 16))
+    bound_ms = bound(crc_work(n_main))[0]
+    del src, out
+
+    # the main input through the card-resident path
+    blob = container.dumps(host_enc)
+    x = torch.from_numpy(data).to(dev)
+    kernels, plain = path_counters()
+    counters = {k: kernels[k] for k in ("encode", "pack", "histogram",
+                                        "scan", "dense_decode")}
+    counters["crc32"] = k_crc.launches
+    for c in [*counters.values(), *plain.values(), p_crc.cuda_calls]:
+        c.n = 0
+    before = {k: c.n for k, c in timing.copied.items()}
+    walls = {}
+
+    def stage(name, fn):
+        out, walls[name] = wall(fn)
+        return out
+
+    enc, trace = stage("encode", lambda: api.encode_traced(x, device="cuda"))
+    buf = stage("dumps", lambda: container.dumps_device(enc))
+    back = stage("loads", lambda: container.loads_device(buf))
+    y = stage("decode", lambda: api.decode(back, device="cuda"))
+    launches = {k: c.n for k, c in counters.items()}
+    plain_calls = {k: c.n for k, c in plain.items()}
+    plain_calls["crc32"] = p_crc.cuda_calls.n
+    moved = sum(c.n - before[k] for k, c in timing.copied.items())
+    require(isinstance(enc, api.ResidentEncoded) and y.is_cuda,
+            "the card-resident path left the card")
+    require(buf.numel() == len(blob) and torch.equal(
+        buf, torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev)),
+        "dumps_device != dumps of the host encode")
+    require(torch.equal(y, x), "card-resident roundtrip != input")
+    require(not any(plain_calls.values()),
+            f"a plain version ran on CUDA tensors: {plain_calls}")
+    require(launches["encode"] == len(trace.capacities_tried)
+            and launches["histogram"] == 1 + trace.rebuilt
+            and launches["scan"] == 2 and launches["pack"] == 1
+            and launches["dense_decode"] == 1 and launches["crc32"] == 2,
+            f"card-resident launches {launches} for {trace}")
+    require(moved < data.size / 100, f"{moved} bytes crossed")
+    # slices of the resident input 1 and 4 bytes past a 16-byte address,
+    # which K1 (word loads) must not read in place
+    sliced = 64 << 20
+    for off in (1, 4):
+        sl = x[off: off + sliced]
+        got = container.dumps_device(api.encode(sl, device="cuda"))
+        want = container.dumps(api.encode(data[off: off + sliced],
+                                          device="cuda"))
+        require(got.numel() == len(want) and torch.equal(got, torch.frombuffer(
+            bytearray(want), dtype=torch.uint8).to(dev)),
+            f"offset {off}: dumps_device != dumps of the host encode")
+        require(torch.equal(api.decode(container.loads_device(got),
+                                       device="cuda"), sl),
+                f"offset {off}: card-resident roundtrip != input")
+        torch.cuda.synchronize()
+    gb = data.size / 1e9
+    rec = {"phase": "device", "crc32_cases": cases,
+           "crc32_stream_words": n_main, "crc32_ms": ms,
+           "crc32_bytes": crc_work(n_main)[0], "crc32_bound_ms": bound_ms,
+           "crc32_bound_share": {k: bound_ms / v for k, v in
+                                 ms["main"].items()},
+           "crc32_plain_ms_sixteenth": plain_ms,
+           "container_equal_host": True, "roundtrip_exact": True,
+           "offset_slices_exact": [1, 4], "offset_slice_bytes": sliced,
+           "sampled": trace.sampled, "rebuilt": trace.rebuilt,
+           "capacities_tried": trace.capacities_tried,
+           "launches": launches, "plain_calls_on_cuda": plain_calls,
+           "bytes_crossed": moved, "bytes_crossed_share": moved / data.size,
+           "walls_s": walls,
+           "encode_GBps": gb / (walls["encode"] + walls["dumps"]),
+           "decode_GBps": gb / (walls["loads"] + walls["decode"]),
+           "card": card}
+    emit(rec)
+    del x, y, buf, back, enc
+    torch.cuda.empty_cache()
+    return launches
+
+
 class WideStages:
     """The wide path's kernels (K5, the schedule and K7, K8) next to their
     plain versions, on device-resident inputs prepared once."""
@@ -1622,6 +1788,7 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     from huffman_tpu_torch.ops.cuda import _build
+    from huffman_tpu_torch.ops.cuda import crc32 as k_crc
     from huffman_tpu_torch.ops.cuda import dense_decode as k_decode
     from huffman_tpu_torch.ops.cuda import encode as k_encode
     from huffman_tpu_torch.ops.cuda import histogram as k_hist
@@ -1656,6 +1823,8 @@ def main() -> int:
     emit({"phase": "datagen", "bytes": MAIN_BYTES,
           "seconds": time.perf_counter() - t0})
     launches, single, exact, walls = phase_main(card, data)
+    launches["crc32"] = phase_device(card, data, single, errs,
+                                     times)["crc32"]
     wide_launches, wide_blob, wide_walls = phase_wide_main(
         card, data, single.total_bits)
     # each kernel's launches on the two main paths (the histogram and the
@@ -1673,7 +1842,8 @@ def main() -> int:
     # first pass, is checked in the wide_main record
     mods = {"encode": k_encode, "pack": k_pack, "dense_decode": k_decode,
             "wide_sub_encode": k_sub, "wide_emit": k_emit,
-            "wide_decode": k_wdec, "histogram": k_hist, "scan": k_scan}
+            "wide_decode": k_wdec, "histogram": k_hist, "scan": k_scan,
+            "crc32": k_crc}
     # times at the kernel cases' main-path shapes (64 MiB); library_ms is
     # torch.bincount's for the histogram, the torch.cumsum chain's (the
     # plain version, by graph replay) for the scan, and null for the

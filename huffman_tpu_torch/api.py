@@ -24,6 +24,14 @@ package does off the TPU; on the CPU the kernel wrappers run their plain
 versions.  _kernel_path is the gate (the CPU tests patch it).  Nothing
 detects a device on its own: every function takes `device`.
 decode: offset scan -> K4 decode of every block (device) -> bytes.
+Card-resident data: encode of a uint8 tensor on the codec's device runs
+the same driver on the resident rows (the sample gathered on the device,
+no staging, the tail block padded only where the input ends inside it)
+and returns a ResidentEncoded, whose stream words and block bit counts
+stay on the device; decode of a ResidentEncoded returns a uint8 tensor
+there.  Only the histograms, three numbers a K1 pass (counts_on_device:
+whether a byte had no code, the largest block and the total) and the
+codebook tables cross.
 Every host-device copy of the codec goes through to_device and to_host,
 which count its bytes (utils/timing.copied), and each call's stages run
 in spans (utils/timing.span), recorded only under torch.profiler.  A copy
@@ -41,7 +49,7 @@ import dataclasses
 import threading
 import warnings
 import weakref
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
 import torch
@@ -106,6 +114,26 @@ class Encoded:
         return (self.total_bits / 8) / max(self.n_bytes, 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class ResidentEncoded:
+    """Encoded's sibling for data that lives on a device: what encode
+    returns for a tensor on the codec's device, and what
+    container.loads_device reads back.  stream_words is the (ceil
+    (total_bits/32),) int32 tensor of the stream's host-order words and
+    block_bits the (NB,) int32 bit counts, both on the device; the rest is
+    Encoded's, on the host."""
+    stream_words: torch.Tensor
+    total_bits: int
+    block_bits: torch.Tensor
+    codebook: Codebook
+    n_bytes: int
+    config: CodecConfig
+
+    @property
+    def ratio(self) -> float:
+        return (self.total_bits / 8) / max(self.n_bytes, 1)
+
+
 @dataclasses.dataclass
 class EncodeTrace:
     """How one encode ran: whether its codebook came from a sample, and was
@@ -122,6 +150,19 @@ def _as_u8(data) -> np.ndarray:
     if isinstance(data, (bytes, bytearray)):
         return np.frombuffer(data, dtype=np.uint8)
     return np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+
+
+def _resident(data, device: torch.device) -> bool:
+    """Whether data is a tensor on `device` (any index where device names
+    none), which encode keeps there."""
+    return (isinstance(data, torch.Tensor) and data.device.type == device.type
+            and device.index in (None, data.device.index))
+
+
+def _resident_u8(data: torch.Tensor) -> torch.Tensor:
+    if data.dtype != torch.uint8:
+        raise ValueError(f"encode: want a uint8 tensor, got {data.dtype}")
+    return data.reshape(-1)
 
 
 def _host_tensor(arr) -> torch.Tensor:
@@ -261,6 +302,30 @@ def valid_per_block(n_bytes: int, num_blocks: int, block_bytes: int,
     return np.clip(n_bytes - starts, 0, block_bytes).astype(np.int32)
 
 
+def valid_on(n_bytes: int, num_blocks: int, block_bytes: int,
+             device: torch.device) -> torch.Tensor:
+    """valid_per_block, made on `device` (nothing crosses)."""
+    starts = torch.arange(num_blocks, dtype=torch.int64,
+                          device=device) * block_bytes
+    return (n_bytes - starts).clamp_(0, block_bytes).to(torch.int32)
+
+
+def resident_blocks(x: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """(NB, block_bytes) uint8 blocks of the 1-D device tensor x: a view of
+    x where it fills them from a 16-byte aligned address, else a copy on
+    its device, zero past x (span encode.pad).  K1 reads the blocks as
+    words, and its warp route in 16-byte pieces: a slice of a buffer at
+    any other address is copied, not handed to it."""
+    nb, bb = cfg.num_blocks(x.numel()), cfg.block_bytes
+    if x.numel() == nb * bb and x.data_ptr() % 16 == 0:
+        return x.view(nb, bb)
+    with span("encode.pad"):
+        rows = torch.empty(nb * bb, dtype=torch.uint8, device=x.device)
+        rows[: x.numel()].copy_(x)
+        rows[x.numel():].zero_()
+    return rows.view(nb, bb)
+
+
 def device_rows(arr: np.ndarray, n_rows: int, row_bytes: int,
                 device: torch.device):
     """(n_rows, row_bytes) uint8 rows of `arr` on `device`, zero past it
@@ -358,15 +423,31 @@ def sample_rows(arr: np.ndarray, cfg: CodecConfig, every: int) -> np.ndarray:
     return np.ascontiguousarray(rows).reshape(-1)
 
 
+def resident_sample(x: torch.Tensor, cfg: CodecConfig,
+                    every: int) -> torch.Tensor:
+    """sample_rows of the 1-D device tensor x, gathered on its device."""
+    bb = cfg.block_bytes
+    full = x.numel() // bb
+    rows = x[: full * bb].view(full, bb)[::every].reshape(-1)
+    if x.numel() > full * bb and full % every == 0:
+        return torch.cat([rows, x[full * bb:]])
+    return rows
+
+
 def build_codebook(data, cfg: CodecConfig = DEFAULT_CONFIG, device="cuda",
                    sample_every: int = 1) -> Codebook:
     """Histogram on `device` + host canonical codebook, with the
     cfg.narrow_tol cap policy of the JAX package.  With sample_every k > 1
-    only every k-th block is counted (sample_rows, gathered on the host):
-    the codebook may then lack codes for bytes outside the sample, which
-    K1 flags."""
-    arr = _as_u8(data)
+    only every k-th block is counted (sample_rows, gathered on the host,
+    or resident_sample for a tensor on `device`): the codebook may then
+    lack codes for bytes outside the sample, which K1 flags."""
     device = torch.device(device)
+    if _resident(data, device):
+        x = _resident_u8(data)
+        if sample_every > 1:
+            x = resident_sample(x, cfg, sample_every)
+        return _codebook_for(x, x.numel(), cfg)
+    arr = _as_u8(data)
     if sample_every > 1:
         sample = to_device(sample_rows(arr, cfg, sample_every), device)
         return _codebook_for(sample, sample.numel(), cfg)
@@ -467,111 +548,240 @@ def _encode_staged(arr: np.ndarray, rows: torch.Tensor, codes, lengths,
 
 def encode(data, cfg: CodecConfig = DEFAULT_CONFIG,
            codebook: Codebook | None = None,
-           model: "CodebookModel | None" = None, device="cuda") -> Encoded:
+           model: "CodebookModel | None" = None,
+           device="cuda") -> Encoded | ResidentEncoded:
     """Encode a byte stream on `device`.
 
     The codebook comes from, in this order: `codebook`, then
     `model.codebook_for(data)` (models.CodebookModel; FixedCodebook skips
     the histogram), then the per-stream build (sampled on the kernel
     path, rebuilt exactly on a miss).  A given or modelled codebook that
-    lacks a code for some input byte raises ValueError."""
+    lacks a code for some input byte raises ValueError.  A uint8 tensor on
+    `device` is encoded where it lies, into a ResidentEncoded; any other
+    data is host data, encoded into an Encoded."""
     return encode_traced(data, cfg, codebook, model, device)[0]
 
 
 def encode_traced(data, cfg: CodecConfig = DEFAULT_CONFIG,
                   codebook: Codebook | None = None,
                   model: "CodebookModel | None" = None,
-                  device="cuda") -> tuple[Encoded, EncodeTrace]:
+                  device="cuda") -> tuple[Encoded | ResidentEncoded,
+                                          EncodeTrace]:
     """encode, and how it ran (EncodeTrace).  Its stages run in spans
     (utils/timing.py) under a root "encode": encode.sample,
     encode.codebook, encode.upload, one encode.pass a pass over the blocks
     (its children one encode.stage a staged chunk and encode.bits),
-    encode.rebuild, encode.pack and encode.stream."""
+    encode.rebuild, encode.pack and encode.stream.  Of a tensor on
+    `device` the root carries resident=True, and the stages are
+    encode.sample (gathered on the device), encode.codebook, encode.pad
+    (only where the input ends inside a block), encode.pass (with
+    encode.bits), encode.rebuild and encode.pack."""
+    device = torch.device(device)
+    trace = EncodeTrace()
+    if _resident(data, device):
+        x = _resident_u8(data)
+        if x.numel() == 0:
+            return _empty_resident(cfg, codebook, x.device), trace
+        with span("encode", format="dense", bytes=x.numel(), resident=True):
+            return _encode_resident(x, cfg, codebook, model, trace), trace
     arr = _as_u8(data)
     n = arr.size
-    trace = EncodeTrace()
     if n == 0:
         return empty_encoded(cfg, codebook), trace
     with span("encode", format="dense", bytes=n):
-        return _encode_traced(arr, cfg, codebook, model,
-                              torch.device(device), trace), trace
+        return _encode_traced(arr, cfg, codebook, model, device,
+                              trace), trace
+
+
+def _empty_resident(cfg: CodecConfig, codebook: Codebook | None,
+                    device: torch.device) -> ResidentEncoded:
+    enc = empty_encoded(cfg, codebook)
+    return ResidentEncoded(
+        torch.zeros(0, dtype=torch.int32, device=device), 0,
+        torch.zeros(1, dtype=torch.int32, device=device), enc.codebook, 0,
+        cfg)
+
+
+def _first_book(data, cfg: CodecConfig, codebook: Codebook | None, model,
+                device: torch.device, trace: EncodeTrace) -> Codebook | None:
+    """The codebook before the blocks are on the device: the given one, the
+    model's, or on the kernel path from SAMPLE_MIN_BYTES on the sample's
+    (trace.sampled): every SAMPLE_EVERY-th block of a host array gathered
+    on the host and copied up, of a device tensor gathered there.  None
+    where the exact book is to be built from the blocks."""
+    if codebook is None and model is not None:
+        with span("encode.codebook"):
+            codebook = model.codebook_for(data)
+    n = data.numel() if isinstance(data, torch.Tensor) else data.size
+    trace.sampled = (_kernel_path(device) and codebook is None
+                     and n >= SAMPLE_MIN_BYTES)
+    if not trace.sampled:
+        return codebook
+    with span("encode.sample"):
+        sample = (resident_sample(data, cfg, SAMPLE_EVERY)
+                  if isinstance(data, torch.Tensor)
+                  else sample_rows(data, cfg, SAMPLE_EVERY))
+    with span("encode.codebook"):
+        if isinstance(sample, np.ndarray):
+            sample = to_device(sample, device)
+        return _codebook_for(sample, sample.numel(), cfg)
 
 
 def _encode_traced(arr: np.ndarray, cfg: CodecConfig,
                    codebook: Codebook | None, model, device: torch.device,
                    trace: EncodeTrace) -> Encoded:
     n = arr.size
-    if codebook is None and model is not None:
-        with span("encode.codebook"):
-            codebook = model.codebook_for(arr)
     kernel_path = _kernel_path(device)
-    sampled = trace.sampled = (kernel_path and codebook is None
-                               and n >= SAMPLE_MIN_BYTES)
-    cb = codebook
-    if sampled:
-        with span("encode.sample"):
-            sample = sample_rows(arr, cfg, SAMPLE_EVERY)
-        with span("encode.codebook"):
-            cb = _codebook_for(to_device(sample, device), sample.size, cfg)
-        del sample
+    cb = _first_book(arr, cfg, codebook, model, device, trace)
     nb, bb = cfg.num_blocks(n), cfg.block_bytes
     # staging needs the codebook first: an exact one is built from the
     # whole input on the device
     staged = kernel_path and cb is not None and nb > CHUNK_BLOCKS
+    first_pass = None
     with span("encode.upload"):
         if staged:
             rows = torch.empty(nb * bb, dtype=torch.uint8, device=device)
             blocks = rows.view(nb, bb)
             valid = to_device(valid_per_block(n, nb, bb), device)
+
+            def staged_pass(codes, lengths, cap):
+                streams, bits_raw, trace.chunks = _encode_staged(
+                    arr, rows, codes, lengths, valid, cap, bb)
+                return streams, bits_raw
+            first_pass = staged_pass
         else:
             blocks, valid = device_blocks(arr, cfg, device)
     if cb is None:
         with span("encode.codebook"):
             cb = _codebook_for(blocks, n, cfg)
+    cb, streams, bits_raw, counts = _k1_passes(
+        cb, blocks, valid, n, cfg, kernel_path, trace.sampled, trace,
+        counts_on_host, first_pass)
+    stream, _ = _pack(streams, bits_raw, counts, cfg)
+    with span("encode.stream"):
+        words = to_host(stream).view(np.uint32)
+    return Encoded(stream_words=words, total_bits=counts.total,
+                   block_bits=counts.host, codebook=cb, n_bytes=n,
+                   config=cfg)
+
+
+def _encode_resident(x: torch.Tensor, cfg: CodecConfig,
+                     codebook: Codebook | None, model,
+                     trace: EncodeTrace) -> ResidentEncoded:
+    """_encode_traced's driver on the rows of the device tensor x: the
+    same sampling policy, capacity schedule, miss and rebuild and checks;
+    the stream words and the block bit counts stay on the device."""
+    n, device = x.numel(), x.device
+    cb = _first_book(x, cfg, codebook, model, device, trace)
+    blocks = resident_blocks(x, cfg)
+    valid = valid_on(n, blocks.shape[0], cfg.block_bytes, device)
+    if cb is None:
+        with span("encode.codebook"):
+            cb = _codebook_for(blocks, n, cfg)
+    cb, streams, bits_raw, counts = _k1_passes(
+        cb, blocks, valid, n, cfg, _kernel_path(device), trace.sampled,
+        trace, counts_on_device)
+    stream, bits = _pack(streams, bits_raw, counts, cfg)
+    return ResidentEncoded(stream_words=stream, total_bits=counts.total,
+                           block_bits=bits, codebook=cb, n_bytes=n,
+                           config=cfg)
+
+
+class PassCounts(NamedTuple):
+    """What the driver reads of a K1 pass's per-block bit counts: whether a
+    valid byte had no code (MISS_FLAG), and else the largest count, the
+    total and, where the counts came to the host, their int32 array."""
+    flagged: bool
+    top: int
+    total: int
+    host: np.ndarray | None
+
+
+def counts_on_host(bits_raw: torch.Tensor) -> PassCounts:
+    """A pass's counts read on the host: they come down whole (the host
+    path's Encoded keeps them)."""
+    raw = to_host(bits_raw)
+    if (raw.view(np.uint32) & MISS_FLAG).any():
+        return PassCounts(True, 0, 0, None)
+    block_bits = block_bits_of(raw)
+    return PassCounts(False, int(block_bits.max()),
+                      int(block_bits.astype(np.int64).sum()), block_bits)
+
+
+def counts_on_device(bits_raw: torch.Tensor) -> PassCounts:
+    """A pass's counts reduced on their device: the flag, the largest
+    count and the total cross, 24 bytes, and the counts stay."""
+    bits = bits_raw & BITS_MASK
+    summary = torch.stack([(bits_raw < 0).any().to(torch.int64),
+                           bits.max().to(torch.int64),
+                           bits.sum(dtype=torch.int64)])
+    flagged, top, total = (int(v) for v in to_host(summary))
+    return PassCounts(bool(flagged), top, total, None)
+
+
+def _k1_passes(cb: Codebook, blocks: torch.Tensor, valid: torch.Tensor,
+               n: int, cfg: CodecConfig, kernel_path: bool, sampled: bool,
+               trace: EncodeTrace, read_counts, first_pass=None):
+    """K1 at each capacity of _cap_schedule until one holds every block,
+    the book rebuilt from the exact histogram of the resident blocks after
+    a sampled one missed; a byte without a code in any other book raises
+    ValueError.  read_counts(bits_raw) reads each pass's counts
+    (counts_on_host or counts_on_device); first_pass(codes, lengths, cap),
+    where given, makes the first pass (the staged one).  Returns the final
+    book, K1's streams and raw bit counts on the device, and the last
+    pass's PassCounts."""
+    device = blocks.device
     while True:
         codes, lengths = codebook_tensors(cb, device)
         sched = (_cap_schedule(cfg, _kernel_mcl(cb), cb.est_bpb)
                  if kernel_path else [cfg.capacity_words])
         for cap in sched:
             with span("encode.pass", cap=cap):
-                if staged and not trace.chunks:
-                    streams, bits_raw, trace.chunks = _encode_staged(
-                        arr, rows, codes, lengths, valid, cap, bb)
+                if first_pass is not None:
+                    streams, bits_raw = first_pass(codes, lengths, cap)
+                    first_pass = None
                 else:
                     streams, bits_raw = k_encode.encode_blocks(
                         blocks, codes, lengths, valid, cap)
                 trace.capacities_tried.append(cap)
                 # the host sync of a pass: the counts decide what comes
-                # next and feed the checks, the total and the container
+                # next and feed the checks and the total
                 with span("encode.bits"):
-                    raw = to_host(bits_raw)
-                missed = sampled and bool((raw.view(np.uint32)
-                                           & MISS_FLAG).any())
+                    counts = read_counts(bits_raw)
+                missed = sampled and counts.flagged
                 if missed:
                     break
-                block_bits = block_bits_of(raw)
+                if counts.flagged:
+                    raise ValueError(
+                        "input contains symbols absent from the codebook")
                 # counts are exact at any capacity: the speculative one
                 # held if no block needs more; the last one packs regardless
-                if int(block_bits.max()) <= cap * 32 or cap == sched[-1]:
+                if counts.top <= cap * 32 or cap == sched[-1]:
                     break
         if not missed:
-            break
+            return cb, streams, bits_raw, counts
         # a byte was seen only outside the sample: rebuild the codebook
         # from the exact histogram of the resident input and encode again
         with span("encode.rebuild"):
             cb = _codebook_for(blocks, n, cfg)
         sampled, trace.rebuilt = False, True
+
+
+def _pack(streams: torch.Tensor, bits_raw: torch.Tensor,
+          counts: PassCounts, cfg: CodecConfig):
+    """check_overflow (the counts come down only for a block past the
+    capacity, to name it), the offset scan and pack at the capacity that
+    held.  Returns the stream words and the int32 bit counts on the
+    device."""
     with span("encode.pack"):
-        check_overflow(block_bits, cfg)
-        total_bits = int(block_bits.astype(np.int64).sum())
+        if cfg.check_overflow and counts.top > cfg.capacity_words * 32:
+            check_overflow(counts.host if counts.host is not None
+                           else to_host(bits_raw & BITS_MASK), cfg)
         bits = bits_raw & BITS_MASK
         offsets = exclusive_bit_offsets(bits)
         stream = k_pack.pack_blocks(streams, bits, offsets.word_base,
-                                    offsets.bit_shift, cdiv(total_bits, 32))
-    with span("encode.stream"):
-        words = to_host(stream).view(np.uint32)
-    return Encoded(stream_words=words, total_bits=total_bits,
-                   block_bits=block_bits, codebook=cb, n_bytes=n, config=cfg)
+                                    offsets.bit_shift, cdiv(counts.total, 32))
+    return stream, bits
 
 
 def encode_pipeline(blocks: torch.Tensor, codes: torch.Tensor,
@@ -589,24 +799,31 @@ def encode_pipeline(blocks: torch.Tensor, codes: torch.Tensor,
                               int(to_host(offsets.total_words))), bits_raw
 
 
-def _decode_blocks(stream_words: np.ndarray, word_base: torch.Tensor,
+def _decode_blocks(stream_words, word_base: torch.Tensor,
                    bit_shift: torch.Tensor, valid: torch.Tensor,
                    cb: Codebook, block_bytes: int) -> torch.Tensor:
+    """K4 over the blocks; stream_words a host array of uint32 words, which
+    goes up, or an int32 tensor on the device already."""
     device = word_base.device
     tb = max(cb.max_len, 1)
     with span("decode.upload"):
         table = to_device(table_entries(cb, tb), device)
-        stream = to_device(np.ascontiguousarray(stream_words, np.uint32)
-                           .view(np.int32), device)
+        stream = (stream_words if isinstance(stream_words, torch.Tensor)
+                  else to_device(np.ascontiguousarray(stream_words, np.uint32)
+                                 .view(np.int32), device))
     with span("decode.kernel"):
         return k_decode.decode_blocks(stream, word_base, bit_shift, valid,
                                       table, tb, block_bytes)
 
 
-def decode(enc: Encoded, device="cuda") -> np.ndarray:
+def decode(enc: Encoded | ResidentEncoded, device="cuda"):
     """Decode every block on `device`.  Returns the uint8 bytes.  Its
     stages run in spans under a root "decode": decode.offsets (the device
-    scan), decode.upload, decode.kernel and decode.output."""
+    scan), decode.upload, decode.kernel and decode.output.  A
+    ResidentEncoded decodes on its tensors' device into a uint8 tensor
+    there (decode_resident)."""
+    if isinstance(enc, ResidentEncoded):
+        return decode_resident(enc)
     if enc.n_bytes == 0:
         return np.zeros(0, np.uint8)
     with span("decode", format="dense", bytes=enc.n_bytes):
@@ -622,6 +839,25 @@ def decode(enc: Encoded, device="cuda") -> np.ndarray:
                              offsets.bit_shift, valid, enc.codebook, bb)
         with span("decode.output"):
             return to_host(out.reshape(-1)[: enc.n_bytes])
+
+
+def decode_resident(enc: ResidentEncoded) -> torch.Tensor:
+    """decode of a ResidentEncoded: its n_bytes as a uint8 tensor on its
+    device, made from its device bit counts and stream words with nothing
+    copied but the decode table.  The root span "decode" carries
+    resident=True; its children are decode.offsets, decode.upload (the
+    table) and decode.kernel."""
+    device = enc.stream_words.device
+    if enc.n_bytes == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=device)
+    with span("decode", format="dense", bytes=enc.n_bytes, resident=True):
+        bb = enc.config.block_bytes
+        with span("decode.offsets"):
+            offsets = exclusive_bit_offsets(enc.block_bits)
+            valid = valid_on(enc.n_bytes, enc.block_bits.numel(), bb, device)
+        out = _decode_blocks(enc.stream_words, offsets.word_base,
+                             offsets.bit_shift, valid, enc.codebook, bb)
+        return out.reshape(-1)[: enc.n_bytes]
 
 
 def decode_block_span(enc: Encoded, b0: int, b1: int,

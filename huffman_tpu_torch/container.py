@@ -18,6 +18,13 @@ Layout (integers little-endian), as in huffman_tpu/container.py:
                 (the payload bytes are the MSB-first bitstream)
   ...     4     CRC-32 of the payload bytes (when flags bit 0 is set)
 
+dumps_device and loads_device write and read the same v1 bytes in one
+uint8 tensor in a device's memory, for a ResidentEncoded: the head (header
+and code lengths) crosses as 296 bytes, the block bit counts are copied on
+the device, and the payload's byte swap and its CRC-32 run in one kernel
+(ops/cuda/crc32.py).  The payload offset, 296 + 4 * NB, is a multiple of
+4, so the payload is written and read as words in place.
+
 Version 3 (the wide format, golden/wide_codec.py), as in the JAX package:
 the same header with block_bytes := the tile size (TILE_BYTES), total_bits
 := payload words * 32 and num_blocks := the tile count; the per-block table
@@ -33,11 +40,13 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
-from .api import Encoded
+from .api import Encoded, ResidentEncoded, to_device, to_host
 from .codebook import Codebook
 from .config import CodecConfig, cdiv
 from .golden.wide_codec import MAXLEN, ROUNDS, TILE_BYTES
+from .ops.cuda.crc32 import swap_crc32
 from .utils.timing import span
 from .wide import WideEncoded
 
@@ -145,6 +154,104 @@ def _loads(blob: bytes, flags: int, n_bytes: int, block_bytes: int,
                    n_bytes=n_bytes,
                    config=CodecConfig(block_bytes=block_bytes,
                                       max_code_len=max_code_len))
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _head(enc, checksum: bool) -> np.ndarray:
+    """The header and the 256 code lengths of enc's v1 container."""
+    header = _HEADER.pack(MAGIC, VERSION, FLAG_CRC32 if checksum else 0,
+                          enc.n_bytes, enc.config.block_bytes,
+                          enc.config.max_code_len, enc.total_bits,
+                          enc.block_bits.numel())
+    return np.frombuffer(header + np.asarray(enc.codebook.lengths,
+                                             dtype=np.uint8).tobytes(),
+                         np.uint8)
+
+
+def dumps_device(enc: ResidentEncoded, checksum: bool = True
+                 ) -> torch.Tensor:
+    """dumps' bytes for a ResidentEncoded, as a uint8 tensor on its device,
+    under a root span "container.dumps" with device=True (children
+    container.head: the head's 296 bytes up and the bit counts copied;
+    container.crc: the payload's swap and CRC, waited for)."""
+    device = enc.stream_words.device
+    nb, n_words = enc.block_bits.numel(), cdiv(enc.total_bits, 32)
+    pay_off = overhead_bytes(nb)
+    end = pay_off + 4 * n_words
+    with span("container.dumps", format="dense", bytes=enc.n_bytes,
+              device=True):
+        buf = torch.empty(end + 4 * checksum, dtype=torch.uint8,
+                          device=device)
+        with span("container.head"):
+            head = _head(enc, checksum)
+            to_device(head, out=buf[: head.size])
+            buf[head.size: pay_off].view(torch.int32).copy_(enc.block_bits)
+        with span("container.crc"):
+            crc = (buf[end:].view(torch.int32) if checksum else
+                   torch.empty(1, dtype=torch.int32, device=device))
+            swap_crc32(enc.stream_words[:n_words],
+                       buf[pay_off: end].view(torch.int32), crc, True)
+            _synchronize(device)
+    return buf
+
+
+def loads_device(buf: torch.Tensor) -> ResidentEncoded:
+    """loads for container bytes (version 1) in a uint8 tensor on a
+    device: a ResidentEncoded on that device, under a root span
+    "container.loads" with device=True (children container.head: the
+    head's 296 bytes down and parsed; container.crc: the payload's swap to
+    host order and its CRC, checked on the host).  Raises ValueError as
+    loads does: a bad magic or version, a truncated buffer, a CRC
+    mismatch."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1:
+        raise ValueError(f"loads_device: want a 1-D uint8 tensor, got "
+                         f"{buf.dtype} of shape {tuple(buf.shape)}")
+    if buf.data_ptr() % 4:
+        buf = buf.clone()                 # the payload is read as words
+    device, head_size = buf.device, _HEADER.size + 256
+    with span("container.loads", format="dense", device=True) as rec:
+        with span("container.head"):
+            head = to_host(buf[:head_size]).tobytes()
+            _, ver, flags, n_bytes, block_bytes, max_code_len, total_bits, \
+                nb = _header(head)
+            if ver != VERSION:
+                raise ValueError(f"unsupported container version {ver}")
+            if len(head) < head_size:
+                raise ValueError("truncated HTZ container")
+            if rec is not None:
+                rec.attrs["bytes"] = n_bytes
+            pay_off = overhead_bytes(nb)
+            end = pay_off + 4 * cdiv(total_bits, 32)
+            if buf.numel() < end:
+                raise ValueError("truncated HTZ container")
+            if flags & FLAG_CRC32 and buf.numel() < end + 4:
+                raise ValueError(
+                    "truncated HTZ container (missing payload CRC)")
+            lens = np.frombuffer(head, np.uint8, 256, _HEADER.size)
+        with span("container.crc"):
+            words = torch.empty((end - pay_off) // 4, dtype=torch.int32,
+                                device=device)
+            crcs = torch.empty(2, dtype=torch.int32, device=device)
+            swap_crc32(buf[pay_off: end].view(torch.int32), words, crcs[:1],
+                       False)
+            if flags & FLAG_CRC32:
+                crcs[1:].copy_(buf[end: end + 4].view(torch.int32))
+                got, want = (int(v) for v in to_host(crcs).view(np.uint32))
+                if got != want:
+                    raise ValueError(
+                        f"HTZ payload CRC mismatch (stored {want:#010x}, "
+                        f"computed {got:#010x}) — container corrupt")
+        block_bits = buf[head_size: pay_off].view(torch.int32).clone()
+    return ResidentEncoded(
+        stream_words=words, total_bits=total_bits, block_bits=block_bits,
+        codebook=Codebook.from_lengths(lens.astype(np.int32)),
+        n_bytes=n_bytes,
+        config=CodecConfig(block_bytes=block_bytes,
+                           max_code_len=max_code_len))
 
 
 def dumps_wide(enc: WideEncoded, checksum: bool = True) -> bytes:

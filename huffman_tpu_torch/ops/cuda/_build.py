@@ -42,6 +42,7 @@ _SIGNATURES = {
     "huff_wide_decode": [_p, _ll, _p, _p, _p, _p, _p, _i, _p, _i, _p],
     "huff_histogram": [_p, _ll, _p, _p],
     "huff_bit_offsets": [_p, _ll, _i, _i, _p, _p, _p, _p, _p],
+    "huff_swap_crc32": [_p, _p, _ll, _i, _p, _p],
 }
 
 

@@ -249,6 +249,7 @@ PORT_MODULES = [
     "huffman_tpu_torch.ops.cuda.dense_decode",
     "huffman_tpu_torch.ops.cuda.histogram",
     "huffman_tpu_torch.ops.cuda.scan",
+    "huffman_tpu_torch.ops.cuda.crc32",
     "huffman_tpu_torch.wide", "huffman_tpu_torch.ops.wide",
     "huffman_tpu_torch.golden", "huffman_tpu_torch.golden.wide_codec",
     "huffman_tpu_torch.ops.cuda.wide_encode",

@@ -132,7 +132,8 @@ def test_every_new_reader_is_in_the_benchmark():
     bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
     names = {m["name"]: m for m in bench["per_layer"]}
     assert set(EXPECT) <= set(names)
-    assert names["driver_ms.sample"]["workloads"] == ["dense.pavle-1g"]
+    assert names["driver_ms.sample"]["workloads"] == [
+        "dense.pavle-1g", "device.pavle-1g"]
     assert names["shards_ms.assemble"]["workloads"] == ["sharded4.pavle-1g"]
 
 
