@@ -32,21 +32,39 @@ holds each tile's plane length in words (u32), followed by each tile's
 ROUNDS per-round pull bases (u16: plane words per tile are < 2**16), then
 the payload, tile after tile, each P0 then P1, words little-endian (they
 are the reader's machine words, not a bitstream), then the optional CRC.
+
+On the host each payload byte is swapped (v1) or copied (v3) at most once
+and checksummed once before dumps' one join into the returned bytes:
+dumps swaps into a buffer that its thread keeps from call to call,
+dumps_wide and loads_wide (of a bytes object) read the words in place,
+and loads takes the CRC over a memoryview.  From PINNED_MIN_BYTES (16
+MiB) of payload on, the swap, copy and CRC each run in WORKERS equal,
+word-aligned pieces on a pool of threads (numpy's casts and zlib.crc32
+release the GIL), the pieces' CRCs joined by crc32_combine; a smaller
+payload is worked in one piece on the calling thread.  The workers open
+no span: the calling thread's container.words and container.crc cover all
+of their pieces.
 """
 
 from __future__ import annotations
 
+import os
 import struct
+import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from .api import Encoded, ResidentEncoded, to_device, to_host
+from .api import (PINNED_MIN_BYTES, Encoded, ResidentEncoded, to_device,
+                  to_host)
 from .codebook import Codebook
 from .config import CodecConfig, cdiv
 from .golden.wide_codec import MAXLEN, ROUNDS, TILE_BYTES
+from .ops.crc32 import crc32_combine
 from .ops.cuda.crc32 import swap_crc32
+from .utils import timing
 from .utils.timing import span
 from .wide import WideEncoded
 
@@ -55,6 +73,11 @@ VERSION = 1
 WIDE_VERSION = 3
 _HEADER = struct.Struct("<4sIIQIIQI")  # magic, ver, flags, n, bb, mcl, bits, nb
 FLAG_CRC32 = 1
+WORKERS = min(os.cpu_count() or 1, 8)     # threads of the pieces' pool
+
+_pool: tuple[int, ThreadPoolExecutor] | None = None   # (pid, pool)
+_pool_lock = threading.Lock()
+_scratch = threading.local()              # .words: dumps' payload buffer
 
 
 def overhead_bytes(num_blocks: int) -> int:
@@ -62,16 +85,87 @@ def overhead_bytes(num_blocks: int) -> int:
     return _HEADER.size + 256 + 4 * num_blocks
 
 
-def _crc(payload: bytes, checksum: bool) -> bytes:
+def _workers() -> ThreadPoolExecutor:
+    """The process's pool of WORKERS threads, made at first use, and again
+    in a forked child, whose copy of the pool has no threads."""
+    global _pool
+    with _pool_lock:
+        if _pool is None or _pool[0] != os.getpid():
+            _pool = (os.getpid(), ThreadPoolExecutor(
+                WORKERS, thread_name_prefix="htz-container"))
+        return _pool[1]
+
+
+def _piece_count(nbytes: int) -> int:
+    """How many pieces a payload of nbytes is worked in: WORKERS from
+    PINNED_MIN_BYTES on, else 1.  The CPU tests patch it."""
+    return WORKERS if nbytes >= PINNED_MIN_BYTES else 1
+
+
+def _bounds(nbytes: int) -> list[int]:
+    """Byte offsets of the equal, word-aligned pieces of a payload of
+    nbytes, first 0 and last nbytes."""
+    k, words = _piece_count(nbytes), nbytes // 4
+    return [4 * (words * i // k) for i in range(k)] + [nbytes]
+
+
+def _run(fn, bounds: list[int]) -> list:
+    """fn(a, b) for each piece [a, b) of bounds, on the workers where there
+    are several pieces, else on the calling thread; the results in order.
+    The bytes are counted in timing.container_bytes, on the calling
+    thread."""
+    pieces = len(bounds) > 2
+    timing.container_bytes["pieces" if pieces else "whole"].n += \
+        bounds[-1] - bounds[0]
+    if not pieces:
+        return [fn(bounds[0], bounds[1])]
+    return list(_workers().map(fn, bounds[:-1], bounds[1:]))
+
+
+def _crc32(data, bounds: list[int]) -> int:
+    """zlib.crc32 of the bytes-like `data`, taken piece by piece over
+    bounds (byte offsets into it) and joined."""
+    view = memoryview(data).cast("B")
+    crcs = _run(lambda a, b: zlib.crc32(view[a:b]), bounds)
+    value = 0
+    for crc, a, b in zip(crcs, bounds, bounds[1:]):
+        value = crc32_combine(value, crc, b - a)
+    return value
+
+
+def _copy_words(dst: np.ndarray, src: np.ndarray) -> None:
+    """dst[:] = src for 1-D arrays of as many 32-bit words, the byte order
+    converted where the two differ, in the pieces of _bounds."""
+    def piece(a: int, b: int) -> None:
+        np.copyto(dst[a // 4: b // 4], src[a // 4: b // 4])
+    _run(piece, _bounds(dst.nbytes))
+
+
+def _payload_buffer(n_words: int) -> np.ndarray:
+    """n_words big-endian words over a buffer that the calling thread keeps
+    from call to call, so that its pages are faulted in once, not at
+    every dumps.  It is sized to a power of two; pages never written
+    cost no memory."""
+    buf = getattr(_scratch, "words", None)
+    if buf is None or buf.size < n_words:
+        buf = _scratch.words = np.empty(1 << (n_words - 1).bit_length()
+                                        if n_words else 0, np.uint32)
+    return buf[:n_words].view(">u4")
+
+
+def _crc(payload: np.ndarray, checksum: bool) -> bytes:
+    """The CRC field of the payload bytes (uint8), b"" without a
+    checksum."""
     with span("container.crc"):
-        return (struct.pack("<I", zlib.crc32(payload) & 0xFFFFFFFF)
+        return (struct.pack("<I", _crc32(payload, _bounds(payload.nbytes)))
                 if checksum else b"")
 
 
 def dumps(enc: Encoded, checksum: bool = True) -> bytes:
     """Serialize an Encoded stream to container bytes, under a root span
     "container.dumps" (children container.words, the payload's
-    big-endian swap; container.crc; container.join)."""
+    big-endian swap into the thread's buffer; container.crc;
+    container.join, the one copy into the bytes returned)."""
     with span("container.dumps", format="dense", bytes=enc.n_bytes):
         header = _HEADER.pack(MAGIC, VERSION, FLAG_CRC32 if checksum else 0,
                               enc.n_bytes, enc.config.block_bytes,
@@ -80,12 +174,14 @@ def dumps(enc: Encoded, checksum: bool = True) -> bytes:
         lens = np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
         bbits = np.asarray(enc.block_bits, dtype=np.uint32).tobytes()
         with span("container.words"):
-            payload = np.ascontiguousarray(
-                enc.stream_words[: cdiv(enc.total_bits, 32)],
-                dtype=np.uint32).astype(">u4").tobytes()
+            words = np.ascontiguousarray(
+                enc.stream_words[: cdiv(enc.total_bits, 32)], np.uint32)
+            payload = _payload_buffer(words.size)
+            _copy_words(payload, words)
+            payload = payload.view(np.uint8)
         crc = _crc(payload, checksum)
         with span("container.join"):
-            return header + lens + bbits + payload + crc
+            return b"".join([header, lens, bbits, payload, crc])
 
 
 def container_version(blob: bytes) -> int:
@@ -116,7 +212,8 @@ def _check_payload(blob: bytes, flags: int, pay_off: int,
         raise ValueError("truncated HTZ container (missing payload CRC)")
     want = struct.unpack_from("<I", blob, pay_off + pay_len)[0]
     with span("container.crc"):
-        got = zlib.crc32(blob[pay_off: pay_off + pay_len]) & 0xFFFFFFFF
+        got = _crc32(memoryview(blob)[pay_off: pay_off + pay_len],
+                     _bounds(pay_len))
     if got != want:
         raise ValueError(
             f"HTZ payload CRC mismatch (stored {want:#010x}, computed "
@@ -126,7 +223,7 @@ def _check_payload(blob: bytes, flags: int, pay_off: int,
 def loads(blob: bytes) -> Encoded:
     """Deserialize container bytes (version 1) back to an Encoded stream,
     under a root span "container.loads" (children container.crc and
-    container.words, the payload's swap to host order)."""
+    container.words, the payload's swap into a new host-order array)."""
     _, ver, flags, n_bytes, block_bytes, max_code_len, total_bits, nb = \
         _header(blob)
     if ver != VERSION:
@@ -146,8 +243,9 @@ def _loads(blob: bytes, flags: int, n_bytes: int, block_bytes: int,
     block_bits = np.frombuffer(blob, dtype=np.uint32, count=nb,
                                offset=off + 256).astype(np.int32)
     with span("container.words"):
-        words = np.frombuffer(blob, dtype=">u4", count=n_words,
-                              offset=pay_off).astype(np.uint32)
+        words = np.empty(n_words, np.uint32)
+        _copy_words(words, np.frombuffer(blob, dtype=">u4", count=n_words,
+                                         offset=pay_off))
     return Encoded(stream_words=words, total_bits=total_bits,
                    block_bits=block_bits,
                    codebook=Codebook.from_lengths(lens.astype(np.int32)),
@@ -256,8 +354,9 @@ def loads_device(buf: torch.Tensor) -> ResidentEncoded:
 
 def dumps_wide(enc: WideEncoded, checksum: bool = True) -> bytes:
     """Serialize a WideEncoded stream (container version 3), under a root
-    span "container.dumps" (children container.words, the payload's word
-    copy; container.crc; container.join)."""
+    span "container.dumps" (children container.words, the payload's words
+    read in place; container.crc; container.join, the one copy into the
+    bytes returned)."""
     nt = len(enc.tile_words)
     bases = np.asarray(enc.bases)
     if bases.shape != (nt, ROUNDS):
@@ -271,17 +370,19 @@ def dumps_wide(enc: WideEncoded, checksum: bool = True) -> bytes:
         counts = np.asarray(enc.tile_words, dtype="<u4").tobytes()
         with span("container.words"):
             payload = np.ascontiguousarray(enc.payload_words,
-                                           dtype="<u4").tobytes()
+                                           "<u4").view(np.uint8)
         crc = _crc(payload, checksum)
         with span("container.join"):
-            return (header + lens + counts + bases.astype("<u2").tobytes()
-                    + payload + crc)
+            return b"".join([header, lens, counts,
+                             bases.astype("<u2").tobytes(), payload, crc])
 
 
 def loads_wide(blob: bytes) -> WideEncoded:
     """Deserialize container version 3 to a WideEncoded stream, under a
     root span "container.loads" (children container.crc and
-    container.words, the payload's word copy).  The tile size and the
+    container.words: the payload's words read in place from a bytes
+    object, which cannot change under them, as a read-only array, and
+    copied once from any other buffer).  The tile size and the
     code-length cap are checked: either out of range would misdecode
     without an error."""
     _, ver, flags, n_bytes, tile, max_code_len, bits, nt = _header(blob)
@@ -317,7 +418,10 @@ def _loads_wide(blob: bytes, ver: int, flags: int, n_bytes: int, tile: int,
                           offset=off).astype(np.int32).reshape(nt, ROUNDS)
     with span("container.words"):
         words = np.frombuffer(blob, dtype="<u4", count=n_words,
-                              offset=pay_off).astype(np.uint32)
+                              offset=pay_off)
+        if not isinstance(blob, bytes):
+            words, src = np.empty(n_words, np.uint32), words
+            _copy_words(words, src)
     return WideEncoded(payload_words=words, tile_words=counts, bases=bases,
                        codebook=Codebook.from_lengths(lens.astype(np.int32)),
                        n_bytes=n_bytes,

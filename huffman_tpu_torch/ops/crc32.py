@@ -62,15 +62,29 @@ def multmodp(a: int, b):
     return p
 
 
+# x^(2^k) mod P for k = 0..31 (zlib's x2n_table): x's order divides
+# 2^32 - 1, so x^(2^32) = x and the table repeats from k = 32 on
+X2N = [X0 >> 1]
+for _ in range(31):
+    X2N.append(multmodp(X2N[-1], X2N[-1]))
+
+
 def x8nmodp(n: int) -> int:
-    """x^(8 n) mod P: the shift of a CRC past n bytes."""
-    p, sq = X0, multmodp(X0 >> 1, X0 >> 1)          # x^0, x^2
-    sq = multmodp(multmodp(sq, sq), multmodp(sq, sq))  # x^8
+    """x^(8 n) mod P: the shift of a CRC past n bytes (zlib's x2nmodp(n,
+    3))."""
+    p, k = X0, 3
     while n:
         if n & 1:
-            p = multmodp(sq, p)
-        sq, n = multmodp(sq, sq), n >> 1
+            p = multmodp(X2N[k & 31], p)
+        n, k = n >> 1, k + 1
     return p
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """zlib.crc32 of A + B from crc1 = zlib.crc32(A), crc2 = zlib.crc32(B)
+    and len2 = len(B) (zlib's crc32_combine).  crc1 may be any start
+    value: crc32_combine(v, zlib.crc32(B), len(B)) == zlib.crc32(B, v)."""
+    return multmodp(x8nmodp(len2), crc1) ^ crc2
 
 
 def _table(device) -> torch.Tensor:

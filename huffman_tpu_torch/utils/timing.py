@@ -22,9 +22,12 @@ cross between host and device by direction and host memory kind
 ("h2d.pageable", "h2d.pinned", "d2h.pageable", "d2h.pinned"; api.to_device
 and api.to_host count them), and `host_blocks`, the bytes of the copies
 that asked api.host_pool for a pinned host block, by what they got
-("reused", "new", "declined": left to pageable memory).  A root span (one
-with no open parent in its thread) stores both counts' change over its
-life as its attributes "copied" and "host_blocks".
+("reused", "new", "declined": left to pageable memory), and
+`container_bytes`, the payload bytes that the host container swapped,
+copied or checksummed, by where: "pieces" on its worker threads, "whole"
+on the calling thread.  A root span (one with no open parent in its
+thread) stores each count's change over its life as its attribute of the
+same name: "copied", "host_blocks", "container_bytes".
 """
 
 from __future__ import annotations
@@ -52,7 +55,10 @@ COPY_KINDS = ("h2d.pageable", "h2d.pinned", "d2h.pageable", "d2h.pinned")
 copied = {kind: Counter() for kind in COPY_KINDS}
 HOST_BLOCK_KINDS = ("reused", "new", "declined")
 host_blocks = {kind: Counter() for kind in HOST_BLOCK_KINDS}
-_ROOT_COUNTS = {"copied": copied, "host_blocks": host_blocks}
+CONTAINER_KINDS = ("pieces", "whole")
+container_bytes = {kind: Counter() for kind in CONTAINER_KINDS}
+_ROOT_COUNTS = {"copied": copied, "host_blocks": host_blocks,
+                "container_bytes": container_bytes}
 
 
 class Span:

@@ -7,11 +7,14 @@ the dense driver (sampled, a forced miss and its rebuild, a staged pass
 over several chunks), the wide codec, both containers, the range reads and
 ShardedCodec over a CPU mesh of four; each call's root carries the bytes
 it copied between host and device, which equal the arithmetic of its
-shapes.  Spans sit on the profiler's clock and never enter its event
-stream.  api._kernel_path is patched true, as in
-test_torch_encode_driver.py.
+shapes.  The host container keeps its span tree when it works a payload
+in pieces on its worker threads, which open no span, and its roots carry
+the payload bytes worked in pieces or whole.  Spans sit on the profiler's
+clock and never enter its event stream.  api._kernel_path is patched
+true, as in test_torch_encode_driver.py.
 """
 
+import dataclasses
 import threading
 import time
 from pathlib import Path
@@ -311,6 +314,64 @@ def test_path_records_its_span_tree_and_copies(case, kernel_path):
         "cap", "shard", "device"} for r in recs)
 
 
+def _payload_state(case: str, nbytes: int):
+    """The state that CONTAINER_CASES[case] serializes, or the container
+    it loads, with a payload of nbytes of random words."""
+    words = np.random.default_rng(3).integers(0, 2**32, nbytes // 4,
+                                              dtype=np.uint32)
+    data = _miss_input()
+    if "wide" in case:
+        enc = dataclasses.replace(_wide(data), payload_words=words)
+        return (enc if case == "dumps_wide"
+                else container.dumps_wide(enc))
+    enc = dataclasses.replace(_dense(data), stream_words=words,
+                              total_bits=32 * words.size)
+    return enc if case == "dumps" else container.dumps(enc)
+
+
+# case: (call, root, children, payload passes: swap or copy, and CRC)
+CONTAINER_CASES = {
+    "dumps": (container.dumps, "container.dumps", DUMPS, 2),
+    "loads": (container.loads, "container.loads", LOADS, 2),
+    "dumps_wide": (container.dumps_wide, "container.dumps", DUMPS, 1),
+    "loads_wide": (container.loads_wide, "container.loads", LOADS, 1),
+}
+
+
+@pytest.mark.parametrize("size", ["pieces", "whole"])
+@pytest.mark.parametrize("case", CONTAINER_CASES)
+def test_container_counts_its_pieces_in_the_same_span_tree(
+        case, size, kernel_path, monkeypatch):
+    """A payload of PINNED_MIN_BYTES is worked in pieces on the workers,
+    one 4 bytes smaller in one piece: the root carries container_bytes
+    accordingly (the v3 words are read in place, so only their CRC
+    counts), the span tree is DUMPS' or LOADS', and every span is opened
+    on the calling thread."""
+    call, root, children, passes = CONTAINER_CASES[case]
+    nbytes = api.PINNED_MIN_BYTES - 4 * (size == "whole")
+    monkeypatch.setattr(container, "WORKERS", 4)
+    state = _payload_state(case, nbytes)
+    threads = set()
+
+    class Recording(timing._Recording):
+        def __init__(self, name, attrs):
+            threads.add(threading.get_ident())
+            super().__init__(name, attrs)
+
+    monkeypatch.setattr(timing, "_Recording", Recording)
+    timing.clear()
+    _profiled(lambda: call(state))
+    recs = timing.spans()
+    assert _tree(recs) == {root: (None, 1), **{c: (root, 1)
+                                               for c in children}}
+    assert threads == {threading.get_ident()}
+    assert recs[0].parent is None and {r.call for r in recs} == {
+        recs[0].call}
+    other = "whole" if size == "pieces" else "pieces"
+    assert recs[0].attrs["container_bytes"] == {size: passes * nbytes,
+                                                other: 0}
+
+
 def test_nothing_is_recorded_without_a_profiler(kernel_path):
     before = {k: c.n for k, c in timing.copied.items()}
     data = _miss_input()
@@ -334,6 +395,7 @@ def test_recorder_nests_by_thread_and_closes_on_error(kernel_path):
         with timing.span("a", bytes=3):
             timing.copied["h2d.pinned"].n += 5
             timing.host_blocks["reused"].n += 7
+            timing.container_bytes["pieces"].n += 11
             with timing.span("a.b", cap=1):
                 timing.copied["d2h.pageable"].n += 2
                 t = threading.Thread(target=other_thread)
@@ -351,7 +413,8 @@ def test_recorder_nests_by_thread_and_closes_on_error(kernel_path):
     assert recs[0].attrs == {"bytes": 3, "copied": {
         "h2d.pageable": 0, "h2d.pinned": 5, "d2h.pageable": 2,
         "d2h.pinned": 0}, "host_blocks": {"reused": 7, "new": 0,
-                                          "declined": 0}}
+                                          "declined": 0},
+        "container_bytes": {"pieces": 11, "whole": 0}}
     assert recs[1].attrs == {"cap": 1}
     assert all(r.end_ns >= r.start_ns for r in recs)
     timing.clear()

@@ -33,6 +33,10 @@ def _blocks(reused=0, new=0, declined=0):
     return {"reused": reused, "new": new, "declined": declined}
 
 
+def _pieces(pieces=0, whole=0):
+    return {"pieces": pieces, "whole": whole}
+
+
 def _calls():
     """Six calls as (root name, (start, end) s, attrs, children), the last
     outside the window."""
@@ -44,11 +48,14 @@ def _calls():
         ("encode", (12.0, 12.5), {"bytes": GIB, "copied": _copied(
             d2h_pageable=500)},
          [("encode.sample", (12.0, 12.03))]),
-        ("container.dumps", (11.0, 11.6), {"bytes": GIB, "copied": _copied()},
+        ("container.dumps", (11.0, 11.6), {"bytes": GIB, "copied": _copied(),
+                                           "container_bytes": _pieces(600)},
          [("container.words", (11.0, 11.2)), ("container.crc", (11.2, 11.3)),
           ("container.join", (11.3, 11.55))]),
         ("container.loads", (12.5, 12.9), {"bytes": GIB // 2,
-                                           "copied": _copied()},
+                                           "copied": _copied(),
+                                           "container_bytes": _pieces(
+                                               whole=200)},
          [("container.crc", (12.5, 12.6)),
           ("container.words", (12.6, 12.75))]),
         ("decode", (13.0, 14.0), {"bytes": GIB, "copied": _copied(
@@ -112,6 +119,7 @@ EXPECT = {
                                                          + 500),
     "pageable_share.decode": 100 * 50 / (50 + 150),
     "pinned_reuse_share.decode": 100 * 150 / (150 + 40 + 10),
+    "container_pieces_share": 100 * 600 / (600 + 200),
     "idle_share.encode_call": 100 * (1 - 0.5 / 1.5),
     "idle_share.decode_call": 100 * (1 - 0.25 / 1.0),
 }
@@ -135,6 +143,8 @@ def test_every_new_reader_is_in_the_benchmark():
     assert names["driver_ms.sample"]["workloads"] == [
         "dense.pavle-1g", "device.pavle-1g"]
     assert names["shards_ms.assemble"]["workloads"] == ["sharded4.pavle-1g"]
+    assert names["container_pieces_share"]["workloads"] == [
+        "dense.pavle-1g", "wide.pavle-1g", "sharded4.pavle-1g"]
 
 
 @pytest.mark.parametrize("name", sorted(EXPECT))
@@ -172,3 +182,22 @@ def test_pinned_reuse_share_without_the_pool(monkeypatch):
     assert harness.reader("pinned_reuse_share.decode")(_run(1)) is None
     assert harness.reader("pageable_share.decode")(_run(1)) == \
         pytest.approx(EXPECT["pageable_share.decode"])
+
+
+@pytest.mark.parametrize("counts,want", [
+    ((_pieces(600), _pieces(200)), 100.0),
+    ((_pieces(whole=600), _pieces(whole=200)), 0.0),
+    ((_pieces(), _pieces()), None),             # no payload byte worked
+    ((None, None), None),                       # a program without it
+])
+def test_container_pieces_share_all_none_and_without_the_counter(
+        monkeypatch, counts, want):
+    recs = _records()
+    tops = [r for r in recs if r.parent is None
+            and r.name.startswith("container.")]
+    for r, c in zip(tops, counts):
+        r.attrs.pop("container_bytes")
+        if c is not None:
+            r.attrs["container_bytes"] = c
+    monkeypatch.setattr(timing, "spans", lambda: list(recs))
+    assert harness.reader("container_pieces_share")(_run(1)) == want
