@@ -1243,8 +1243,8 @@ class WideStages:
         from huffman_tpu_torch.ops.decode import table_entries
         dev = torch.device("cuda")
         self.rows, self.valid = wide.device_substreams(data, dev)
-        self.cb = codebook or api._codebook_for(self.rows, data.size,
-                                                CodecConfig())
+        self.cb = codebook or api.codebook_for(self.rows, data.size,
+                                               CodecConfig())
         self.mcl = wide.reader_mcl(self.cb)
         self.slot = wide.slot_words(self.mcl)
         self.codes = torch.from_numpy(

@@ -57,13 +57,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .api import (PINNED_MIN_BYTES, Encoded, ResidentEncoded, to_device,
-                  to_host)
+from .api import Encoded, ResidentEncoded
 from .codebook import Codebook
 from .config import CodecConfig, cdiv
 from .golden.wide_codec import MAXLEN, ROUNDS, TILE_BYTES
 from .ops.crc32 import crc32_combine
 from .ops.cuda.crc32 import swap_crc32
+from .transfer import PINNED_MIN_BYTES, to_device, to_host
 from .utils import timing
 from .utils.timing import span
 from .wide import WideEncoded
@@ -161,17 +161,29 @@ def _crc(payload: np.ndarray, checksum: bool) -> bytes:
                 if checksum else b"")
 
 
+def _head(enc, version: int, checksum: bool, block_bytes: int,
+          total_bits: int, num_blocks: int) -> bytes:
+    """The header and the 256 code lengths of enc's container (any
+    version: Encoded, ResidentEncoded or WideEncoded)."""
+    return _HEADER.pack(MAGIC, version, FLAG_CRC32 if checksum else 0,
+                        enc.n_bytes, block_bytes, enc.config.max_code_len,
+                        total_bits, num_blocks) + \
+        np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
+
+
+def _dense_head(enc, checksum: bool) -> bytes:
+    """_head of a v1 container: Encoded's or ResidentEncoded's."""
+    return _head(enc, VERSION, checksum, enc.config.block_bytes,
+                 enc.total_bits, len(enc.block_bits))
+
+
 def dumps(enc: Encoded, checksum: bool = True) -> bytes:
     """Serialize an Encoded stream to container bytes, under a root span
     "container.dumps" (children container.words, the payload's
     big-endian swap into the thread's buffer; container.crc;
     container.join, the one copy into the bytes returned)."""
     with span("container.dumps", format="dense", bytes=enc.n_bytes):
-        header = _HEADER.pack(MAGIC, VERSION, FLAG_CRC32 if checksum else 0,
-                              enc.n_bytes, enc.config.block_bytes,
-                              enc.config.max_code_len, enc.total_bits,
-                              len(enc.block_bits))
-        lens = np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
+        head = _dense_head(enc, checksum)
         bbits = np.asarray(enc.block_bits, dtype=np.uint32).tobytes()
         with span("container.words"):
             words = np.ascontiguousarray(
@@ -181,7 +193,7 @@ def dumps(enc: Encoded, checksum: bool = True) -> bytes:
             payload = payload.view(np.uint8)
         crc = _crc(payload, checksum)
         with span("container.join"):
-            return b"".join([header, lens, bbits, payload, crc])
+            return b"".join([head, bbits, payload, crc])
 
 
 def container_version(blob: bytes) -> int:
@@ -259,17 +271,6 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _head(enc, checksum: bool) -> np.ndarray:
-    """The header and the 256 code lengths of enc's v1 container."""
-    header = _HEADER.pack(MAGIC, VERSION, FLAG_CRC32 if checksum else 0,
-                          enc.n_bytes, enc.config.block_bytes,
-                          enc.config.max_code_len, enc.total_bits,
-                          enc.block_bits.numel())
-    return np.frombuffer(header + np.asarray(enc.codebook.lengths,
-                                             dtype=np.uint8).tobytes(),
-                         np.uint8)
-
-
 def dumps_device(enc: ResidentEncoded, checksum: bool = True
                  ) -> torch.Tensor:
     """dumps' bytes for a ResidentEncoded, as a uint8 tensor on its device,
@@ -285,7 +286,7 @@ def dumps_device(enc: ResidentEncoded, checksum: bool = True
         buf = torch.empty(end + 4 * checksum, dtype=torch.uint8,
                           device=device)
         with span("container.head"):
-            head = _head(enc, checksum)
+            head = np.frombuffer(_dense_head(enc, checksum), np.uint8)
             to_device(head, out=buf[: head.size])
             buf[head.size: pay_off].view(torch.int32).copy_(enc.block_bits)
         with span("container.crc"):
@@ -362,18 +363,15 @@ def dumps_wide(enc: WideEncoded, checksum: bool = True) -> bytes:
     if bases.shape != (nt, ROUNDS):
         raise ValueError("bases shape mismatch")
     with span("container.dumps", format="wide", bytes=enc.n_bytes):
-        header = _HEADER.pack(MAGIC, WIDE_VERSION,
-                              FLAG_CRC32 if checksum else 0, enc.n_bytes,
-                              TILE_BYTES, enc.config.max_code_len,
-                              int(enc.payload_words.size) * 32, nt)
-        lens = np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
+        head = _head(enc, WIDE_VERSION, checksum, TILE_BYTES,
+                     int(enc.payload_words.size) * 32, nt)
         counts = np.asarray(enc.tile_words, dtype="<u4").tobytes()
         with span("container.words"):
             payload = np.ascontiguousarray(enc.payload_words,
                                            "<u4").view(np.uint8)
         crc = _crc(payload, checksum)
         with span("container.join"):
-            return b"".join([header, lens, counts,
+            return b"".join([head, counts,
                              bases.astype("<u2").tobytes(), payload, crc])
 
 

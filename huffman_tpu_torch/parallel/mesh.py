@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..api import device_rows, host_block, to_host
+from ..transfer import device_rows, host_block, to_host
 from ..utils.device import probe_devices
 
 
@@ -102,9 +102,9 @@ def put_global(arr: np.ndarray, n_rows: int, row_bytes: int, mesh: Mesh):
     """Upload a host byte stream as n_rows rows of row_bytes, zero past its
     end, split evenly over the mesh (n_rows is a multiple of its size).
     This process uploads only the shards it owns, each straight from its
-    slice of `arr` (api.device_rows: no padded copy on the host).  Returns
-    per shard the (rows, valid byte counts) on its device, or (None, None)
-    for another process's shard."""
+    slice of `arr` (transfer.device_rows: no padded copy on the host).
+    Returns per shard the (rows, valid byte counts) on its device, or
+    (None, None) for another process's shard."""
     k = n_rows // mesh.size
     rows, valid = [None] * mesh.size, [None] * mesh.size
     for s in mesh.local_shards:
@@ -133,9 +133,9 @@ def fetch(mesh: Mesh, parts) -> tuple[np.ndarray, np.ndarray]:
     array, and the (size + 1,) int64 offsets of the shards in it.  parts[s]
     is shard s's tensor where this process owns shard s (anything
     elsewhere); each is copied from its device straight into its place:
-    into a block of api.host_pool where the parts are on CUDA devices and
-    the whole reaches api.PINNED_MIN_BYTES (api.host_block), else into
-    fresh memory.  With several processes, each process's shards
+    into a block of transfer.host_pool where the parts are on CUDA devices
+    and the whole reaches transfer.PINNED_MIN_BYTES (transfer.host_block),
+    else into fresh memory.  With several processes, each process's shards
     (consecutive in the mesh) are all-gathered over the process group, so
     every process gets the whole array."""
     local = mesh.local_shards

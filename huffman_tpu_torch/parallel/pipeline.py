@@ -19,10 +19,10 @@ api.encode's stream words, total and (trimmed to the input's blocks)
 block_bits, so the containers are byte-identical; encode_wide gives
 wide.encode_wide's container, the mesh's padding tiles dropped.
 
-On CUDA devices the dense encode runs api.encode's capacity schedule: K1
-at a speculative capacity first where the codebook allows it, again at the
-safe one if a block needs more.  Its histogram is exact, as in the JAX
-package, which samples only on one device.
+The dense encode runs api.encode's capacities (api.capacities): on CUDA
+devices K1 at a speculative capacity first where the codebook allows it,
+again at the safe one if a block needs more.  Its histogram is exact, as
+in the JAX package, which samples only on one device.
 
 Left out against the JAX package, all Mosaic machinery whose output equals
 the exact path's (ROADMAP.md): the speculative trees with their patch
@@ -38,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import api, wide
+from .. import api, transfer, wide
 from ..codebook import Codebook
 from ..config import DEFAULT_CONFIG, CodecConfig, cdiv
 from ..golden.wide_codec import MAXLEN, N_SUB, ROUNDS, SUB_BYTES, TILE_BYTES
@@ -59,11 +59,11 @@ def histogram_sharded(mesh: Mesh):
 
     def _hist(d_blocks, d_valid) -> np.ndarray:
         parts = [hist_ops.histogram(d_blocks[s],
-                                    int(api.to_host(d_valid[s].sum())))
+                                    int(transfer.to_host(d_valid[s].sum())))
                  for s in mesh.local_shards]
         total = np.zeros(256, np.int64)
         for h in parts:
-            total += api.to_host(h)
+            total += transfer.to_host(h)
         return allreduce_sum(total, mesh)
 
     return _hist
@@ -137,7 +137,7 @@ class ShardedCodec:
     def prepare(self, data) -> tuple[np.ndarray, int]:
         """The input as flat uint8 bytes and its block count, padded to a
         multiple of the mesh size (the padding is made on the devices)."""
-        arr = api._as_u8(data)
+        arr = api.as_u8(data)
         return arr, pad_blocks_for_mesh(self.cfg.num_blocks(arr.size),
                                         self.mesh)
 
@@ -156,9 +156,9 @@ class ShardedCodec:
 
         Phase 1 runs K1 on every shard; one host copy per shard then brings
         back the bit counts, for the miss and overflow checks, the shard
-        bases and the total.  On the kernel path phase 1 runs at each
-        capacity of api._cap_schedule until one holds every block, the
-        decision the same in every process, which all hold every count.
+        bases and the total.  Phase 1 runs at each of api.capacities until
+        one holds every block, the decision the same in every process,
+        which all hold every count.
         Phase 2 packs each shard at its global bit phase, and
         assemble_dense ORs one seam word per boundary.  A given codebook
         that lacks a code for some input byte raises ValueError.  The
@@ -184,9 +184,7 @@ class ShardedCodec:
             with span("encode.codebook"):
                 codebook = self._codebook(d_blocks, d_valid)
         cb = codebook
-        sched = (api._cap_schedule(cfg, api._kernel_mcl(cb), cb.est_bpb)
-                 if api._kernel_path(mesh.devices[0])
-                 else [cfg.capacity_words])
+        sched = api.capacities(cb, cfg, mesh.devices[0])
         for cap in sched:
             with span("encode.pass", cap=cap):
                 streams, bits_raw = encode_phase1(mesh, d_blocks, d_valid,
@@ -250,7 +248,7 @@ class ShardedCodec:
         cfg = self.cfg
         if cfg.max_code_len > MAXLEN:
             raise ValueError("wide format requires max_code_len <= 12")
-        arr = api._as_u8(data)
+        arr = api.as_u8(data)
         n = arr.size
         with span("encode", format="wide", bytes=n, shards=self.mesh.size):
             return self._encode_wide(arr, codebook)

@@ -19,10 +19,11 @@ the records, clear() empties them.
 Counter is a count that a run resets and reads: kernel launches, calls of
 a plain version on CUDA tensors (ops/), and `copied`, the bytes that
 cross between host and device by direction and host memory kind
-("h2d.pageable", "h2d.pinned", "d2h.pageable", "d2h.pinned"; api.to_device
-and api.to_host count them), and `host_blocks`, the bytes of the copies
-that asked api.host_pool for a pinned host block, by what they got
-("reused", "new", "declined": left to pageable memory), and
+("h2d.pageable", "h2d.pinned", "d2h.pageable", "d2h.pinned";
+transfer.to_device and transfer.to_host count them), and `host_blocks`,
+the bytes of the copies that asked transfer.host_pool for a pinned host
+block, by what they got ("reused", "new", "declined": left to pageable
+memory), and
 `container_bytes`, the payload bytes that the host container swapped,
 copied or checksummed, by where: "pieces" on its worker threads, "whole"
 on the calling thread.  A root span (one with no open parent in its

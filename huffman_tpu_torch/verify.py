@@ -7,7 +7,7 @@ import dataclasses
 import numpy as np
 
 from . import golden
-from .api import Encoded, _as_u8, decode
+from .api import Encoded, as_u8, decode
 from .golden.numpy_codec import packed_bytes_to_words
 
 
@@ -22,7 +22,7 @@ class VerifyResult:
 
 def verify_encoded(enc: Encoded, data) -> VerifyResult:
     """Bit-exact comparison of an encoded stream with the golden encoder."""
-    ref_bytes, ref_bits = golden.encode(_as_u8(data), enc.codebook)
+    ref_bytes, ref_bits = golden.encode(as_u8(data), enc.codebook)
     if enc.total_bits != ref_bits:
         return VerifyResult(False, f"bit count {enc.total_bits} != golden {ref_bits}")
     ref_words = packed_bytes_to_words(ref_bytes)
@@ -39,7 +39,7 @@ def verify_encoded(enc: Encoded, data) -> VerifyResult:
 
 def verify_roundtrip(enc: Encoded, data, device="cuda") -> VerifyResult:
     """Decode on `device` and compare with the original bytes."""
-    arr = _as_u8(data)
+    arr = as_u8(data)
     back = decode(enc, device=device)
     if back.shape != arr.shape:
         return VerifyResult(False, f"length {back.size} != {arr.size}")

@@ -31,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import api
+from . import api, transfer
 from .codebook import Codebook
 from .config import DEFAULT_CONFIG, CodecConfig, cdiv
 from .golden.wide_codec import MAXLEN, N_SUB, ROUNDS, SUB_BYTES, TILE_BYTES
@@ -83,8 +83,8 @@ def slot_words(mcl: int) -> int:
 def device_substreams(arr: np.ndarray, device: torch.device):
     """(NS, SUB_BYTES) uint8 substream rows on `device`, zero past the input
     (NS = N_SUB * num_tiles(n)), and the (NS,) int32 valid byte counts."""
-    return api.device_rows(arr, num_tiles(arr.size) * N_SUB, SUB_BYTES,
-                           device)
+    return transfer.device_rows(arr, num_tiles(arr.size) * N_SUB,
+                                SUB_BYTES, device)
 
 
 def payload_offsets(tile_words: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -92,7 +92,7 @@ def payload_offsets(tile_words: torch.Tensor) -> tuple[torch.Tensor, int]:
     planes, through the offset scan's kernel on a CUDA device) and the
     payload length, which is a host sync."""
     offsets, total = k_scan.payload_offsets(tile_words)
-    return offsets, int(api.to_host(total))
+    return offsets, int(transfer.to_host(total))
 
 
 def encode_substreams(rows: torch.Tensor, valid: torch.Tensor,
@@ -108,12 +108,13 @@ def encode_substreams(rows: torch.Tensor, valid: torch.Tensor,
         codes, lengths = api.codebook_tensors(cb, device)
         streams, bits, l2 = k_sub.sub_encode(rows, codes, lengths, valid,
                                              slot_words(mcl))
-        if bool(api.to_host((bits < 0).any())):  # MISS_FLAG: the sign bit
+        # MISS_FLAG is the sign bit
+        if bool(transfer.to_host((bits < 0).any())):
             raise ValueError(
                 "input contains symbols absent from the codebook")
     with span("encode.schedule"):
         nt = rows.shape[0] // N_SUB
-        tb = api.to_device(tile_bytes(n_bytes, 0, nt), device)
+        tb = transfer.to_device(tile_bytes(n_bytes, 0, nt), device)
         bases, tile_words, masks = k_emit.schedule_counts(l2, tb, mcl)
         offsets, n_words = payload_offsets(tile_words)
     with span("encode.emit"):
@@ -131,7 +132,7 @@ def encode_wide(data, cfg: CodecConfig = DEFAULT_CONFIG,
     raises ValueError, as do codes longer than 12 bits.  Its stages run in
     spans under a root "encode": encode.upload, encode.codebook,
     encode_substreams' three and encode.stream."""
-    arr = api._as_u8(data)
+    arr = api.as_u8(data)
     n = arr.size
     if cfg.max_code_len > MAXLEN:
         raise ValueError("wide format requires max_code_len <= 12")
@@ -140,16 +141,16 @@ def encode_wide(data, cfg: CodecConfig = DEFAULT_CONFIG,
             rows, valid = device_substreams(arr, torch.device(device))
         if codebook is None:
             with span("encode.codebook"):
-                codebook = api._codebook_for(rows, n, cfg)
+                codebook = api.codebook_for(rows, n, cfg)
         if codebook.max_len > MAXLEN:
             raise ValueError(f"codebook has {codebook.max_len}-bit codes; "
                              f"the wide format takes at most {MAXLEN}")
         payload, tile_words, bases = encode_substreams(rows, valid, codebook,
                                                        n)
         with span("encode.stream"):
-            return WideEncoded(api.to_host(payload).view(np.uint32),
-                               api.to_host(tile_words), api.to_host(bases),
-                               codebook, n, cfg)
+            return WideEncoded(transfer.to_host(payload).view(np.uint32),
+                               transfer.to_host(tile_words),
+                               transfer.to_host(bases), codebook, n, cfg)
 
 
 def _decode_tiles(enc: WideEncoded, t0: int, t1: int,
@@ -165,15 +166,15 @@ def _decode_tiles(enc: WideEncoded, t0: int, t1: int,
         tw = np.asarray(enc.tile_words, np.int64)
         tile_start = np.concatenate([[0], np.cumsum(2 * tw)])
         w0, w1 = int(tile_start[t0]), int(tile_start[t1])
-        starts = api.to_device(tile_start[t0:t1] - w0, device)
-        words = api.to_device(tw[t0:t1].astype(np.int32), device)
-        bases = api.to_device(np.ascontiguousarray(enc.bases[t0:t1],
-                                                   np.int32), device)
-        nbytes = api.to_device(tile_bytes(enc.n_bytes, t0, t1), device)
+        starts = transfer.to_device(tile_start[t0:t1] - w0, device)
+        words = transfer.to_device(tw[t0:t1].astype(np.int32), device)
+        bases = transfer.to_device(
+            np.ascontiguousarray(enc.bases[t0:t1], np.int32), device)
+        nbytes = transfer.to_device(tile_bytes(enc.n_bytes, t0, t1), device)
     with span("decode.upload"):
-        payload = api.to_device(np.ascontiguousarray(
+        payload = transfer.to_device(np.ascontiguousarray(
             enc.payload_words[w0:w1], np.uint32).view(np.int32), device)
-        table = api.to_device(table_entries(enc.codebook, mcl), device)
+        table = transfer.to_device(table_entries(enc.codebook, mcl), device)
     with span("decode.kernel"):
         return k_decode.decode_tiles(payload, starts, words, bases, nbytes,
                                      table, mcl)
@@ -187,7 +188,7 @@ def decode_wide(enc: WideEncoded, device="cuda") -> np.ndarray:
     with span("decode", format="wide", bytes=enc.n_bytes):
         out = _decode_tiles(enc, 0, len(enc.tile_words), device)
         with span("decode.output"):
-            return api.to_host(out.reshape(-1)[: enc.n_bytes])
+            return transfer.to_host(out.reshape(-1)[: enc.n_bytes])
 
 
 def decode_wide_range(enc: WideEncoded, start: int, stop: int,
@@ -204,7 +205,7 @@ def decode_wide_range(enc: WideEncoded, start: int, stop: int,
     with span("decode", format="wide", range=True, bytes=stop - start):
         out = _decode_tiles(enc, t0, t1, device).reshape(-1)
         with span("decode.output"):
-            return api.to_host(
+            return transfer.to_host(
                 out[start - t0 * TILE_BYTES: stop - t0 * TILE_BYTES])
 
 

@@ -165,7 +165,9 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
         bb = enc.config.block_bytes
         nb = len(enc.block_bits)
         offs = exclusive_bit_offsets(torch.from_numpy(enc.block_bits).to(dev))
-        valid = torch.from_numpy(api.valid_per_block(n, nb, bb)).to(dev)
+        starts = np.arange(nb, dtype=np.int64) * bb
+        valid = torch.from_numpy(np.clip(n - starts, 0, bb)
+                                 .astype(np.int32)).to(dev)
         tb = max(enc.codebook.max_len, 1)
         table = torch.from_numpy(table_entries(enc.codebook, tb)).to(dev)
         stream = torch.from_numpy(enc.stream_words.view(np.int32)).to(dev)

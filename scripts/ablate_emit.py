@@ -266,7 +266,7 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
     for name in ablation.SIZES:
         data = np.load(os.path.join(data_dir, f"{name}.npy"))
         rows, valid = wide.device_substreams(data, dev)
-        cb = api._codebook_for(rows, data.size, CodecConfig())
+        cb = api.build_codebook(data, CodecConfig(), dev)
         mcl = wide.reader_mcl(cb)
         slot = wide.slot_words(mcl)
         codes, lengths = api.codebook_tensors(cb, dev)

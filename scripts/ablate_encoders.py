@@ -213,7 +213,7 @@ def child(pkg_root: str, data_dir: str, check: bool) -> dict:
     for name in ablation.SIZES:
         data = np.load(os.path.join(data_dir, f"{name}.npy"))
         blocks, valid = api.device_blocks(data, cfg, dev)
-        cb = api._codebook_for(blocks, data.size, cfg)
+        cb = api.build_codebook(data, cfg, dev)
         codes, lengths = api.codebook_tensors(cb, dev)
         cap = cfg.capacity_words
         rows, rvalid = wide.device_substreams(data, dev)

@@ -21,7 +21,8 @@ pavle-1g traffic (bench_torch/gen.py), drawn on the card from the seed.
           three kinds of memory, right after the copy into it, five times.
   keep    api.encode once, then api.decode K times, every output held
           and compared with the input: each call's wall, and the counts
-          of the tree's pool of host blocks after it (api.host_pool,
+          of the tree's pool of host blocks after it (transfer.host_pool,
+          api.host_pool in trees before the copy layer had its module;
           timing.host_blocks) where the tree has one.
 
 Prints one JSON line, written to FILE too where given.
@@ -83,12 +84,17 @@ def reads(src, pinned, reused, nbytes: int = 300 * 2**20) -> dict:
 
 
 def keep(arr, calls: int) -> dict:
+    import importlib.util
+
     import numpy as np
     from huffman_tpu_torch import api
     from huffman_tpu_torch.utils import timing
     enc = api.encode(arr, device="cuda")
     blocks = getattr(timing, "host_blocks", None)
-    pool = getattr(api, "host_pool", None)
+    layer = (importlib.import_module("huffman_tpu_torch.transfer")
+             if importlib.util.find_spec("huffman_tpu_torch.transfer")
+             else api)
+    pool = getattr(layer, "host_pool", None)
     held, walls, counts = [], [], []
     for _ in range(calls):
         t0 = time.perf_counter()

@@ -242,6 +242,7 @@ def test_cli_roundtrip(tmp_path, capsys):
 # every module of the port that a user or chip_smoke.py imports
 PORT_MODULES = [
     "huffman_tpu_torch", "huffman_tpu_torch.api",
+    "huffman_tpu_torch.transfer",
     "huffman_tpu_torch.container", "huffman_tpu_torch.cli",
     "huffman_tpu_torch.convert", "huffman_tpu_torch.verify",
     "huffman_tpu_torch.ops.cuda.encode",

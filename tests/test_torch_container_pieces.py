@@ -1,8 +1,8 @@
 """The host container's pieces path on the CPU, against huffman_tpu.
 
 container._piece_count is patched to force 1, 2, 3 or 8 pieces on small
-payloads, as test_torch_host_pool.py patches api._host_block_path: the v1
-and v3 bytes equal the JAX package's byte for byte, with the checksum on
+payloads, as test_torch_host_pool.py patches transfer._host_block_path: the
+v1 and v3 bytes equal the JAX package's byte for byte, with the checksum on
 and off and word counts that no piece count divides; either package loads
 the other's containers; loads and loads_wide raise as in one piece.  The
 pieces' CRCs join to zlib.crc32 exactly (ops/crc32.crc32_combine), the

@@ -103,7 +103,7 @@ def test_sampled_book_is_taken_on_the_device(kernel_path):
     _, tr = api.encode_traced(x, device="cpu")
     _, host_tr = api.encode_traced(data, device="cpu")
     assert tr.sampled and tr == host_tr
-    assert torch.equal(api.resident_sample(x, CFG, api.SAMPLE_EVERY),
+    assert torch.equal(api.sample_rows(x, CFG, api.SAMPLE_EVERY),
                        torch.from_numpy(api.sample_rows(data, CFG,
                                                         api.SAMPLE_EVERY)))
     for every in (1, 16):

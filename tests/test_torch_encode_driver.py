@@ -19,7 +19,7 @@ import pytest
 from huffman_tpu import api as ref_api
 from huffman_tpu.config import CodecConfig as RefConfig
 
-from huffman_tpu_torch import api, golden
+from huffman_tpu_torch import api, golden, transfer
 from huffman_tpu_torch.codebook import Codebook
 from huffman_tpu_torch.config import CodecConfig
 from huffman_tpu_torch.golden.numpy_codec import packed_bytes_to_words
@@ -140,8 +140,8 @@ def test_sampled_build_codebook_equals_reference(n):
     np.testing.assert_array_equal(cb.lengths, ref.lengths)
     np.testing.assert_array_equal(cb.codes, ref.codes)
     assert cb.est_bpb == ref.est_bpb
-    valid = api.valid_per_block(n, cfg.num_blocks(n), cfg.block_bytes)
-    assert api.sample_rows(data, cfg, 4).size == valid[::4].sum()
+    valid = transfer.valid_on(n, cfg.num_blocks(n), cfg.block_bytes, "cpu")
+    assert api.sample_rows(data, cfg, 4).size == int(valid[::4].sum())
 
 
 def _spec_holds():
@@ -232,7 +232,7 @@ def test_stage_chunks_zero_fills_and_covers():
     import torch
     arr = np.arange(1000, dtype=np.uint8)
     rows = torch.full((1280,), 7, dtype=torch.uint8)
-    spans = list(api.stage_chunks(arr, rows, 384))
+    spans = list(transfer.stage_chunks(arr, rows, 384))
     assert spans == [(0, 384), (384, 768), (768, 1152), (1152, 1280)]
     np.testing.assert_array_equal(rows[:1000].numpy(), arr)
     assert not rows[1000:].any()

@@ -174,3 +174,55 @@ def test_scripts_read_nothing_of_the_jax_package():
             if isinstance(node, ast.Constant) and isinstance(node.value, str):
                 assert not re.fullmatch(r"huffman_tpu(/.*)?", node.value), (
                     path, node.value)
+
+
+# the modules above the copy layer, which the layers under them never import
+UPPER = {"huffman_tpu_torch.api", "huffman_tpu_torch.wide",
+         "huffman_tpu_torch.container", "huffman_tpu_torch.parallel.pipeline"}
+# the names transfer.py defines, which live there alone
+TRANSFER_NAMES = ("to_device", "to_host", "HostPool", "host_pool",
+                  "host_block", "_host_block_path", "_pinned", "_count",
+                  "_host_tensor", "PINNED_RING", "PINNED_MIN_BYTES",
+                  "PINNED_POOL_BYTES", "stage_chunks", "device_rows",
+                  "valid_on")
+
+
+def _imports(path: str) -> list[tuple[str, set]]:
+    """Each import in the port's file at `path`, relative ones resolved, as
+    (name, the modules it may load): `import m` loads m; `from m import n`
+    loads m and, where n is a submodule, m.n."""
+    parts = os.path.relpath(path, ROOT)[:-3].split(os.sep)
+    package = parts[:-1]
+    out = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            out += [(a.name, {a.name}) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package[: len(package) - node.level + 1] if node.level \
+                else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            out += [(a.name, {module, f"{module}.{a.name}"})
+                    for a in node.names]
+    return out
+
+
+def test_layers_import_only_downwards():
+    """The copy layer (transfer.py), the mesh and the ops import nothing of
+    api, wide, container or parallel.pipeline; container.py takes only the
+    two dense result types from api; and the copy layer's names are not
+    found in api."""
+    from huffman_tpu_torch import api
+    pkg = os.path.join(ROOT, "huffman_tpu_torch")
+    lower = [os.path.join(pkg, "transfer.py"),
+             os.path.join(pkg, "parallel", "mesh.py")] + sorted(
+        os.path.join(d, f) for d, _, fs in os.walk(os.path.join(pkg, "ops"))
+        for f in fs if f.endswith(".py"))
+    assert len(lower) > 10
+    for path in lower:
+        for name, modules in _imports(path):
+            assert not modules & UPPER, (path, name)
+    from_api = {name for name, modules in _imports(
+        os.path.join(pkg, "container.py"))
+        if "huffman_tpu_torch.api" in modules}
+    assert from_api == {"Encoded", "ResidentEncoded"}
+    assert not [n for n in TRANSFER_NAMES if hasattr(api, n)]

@@ -1,8 +1,8 @@
 """The pool of host blocks that large device-to-host copies land in
-(api.HostPool, api.host_pool) on the CPU.
+(transfer.HostPool, transfer.host_pool) on the CPU.
 
 The CPU build of torch cannot pin, so the pool here takes plain CPU
-blocks (a stand-in for the pinned allocation), and api._host_block_path is
+blocks (a stand-in for the pinned allocation), and transfer._host_block_path is
 patched to admit CPU sources from MIN bytes on, so that the codec's own
 copies run the pool's logic.  A block is reused only once its array and
 every view of it are gone; a result held is never written by a later
@@ -21,7 +21,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from huffman_tpu_torch import api, wide
+from huffman_tpu_torch import api, transfer, wide
 from huffman_tpu_torch.parallel.mesh import fetch, make_mesh
 from huffman_tpu_torch.parallel.pipeline import ShardedCodec
 from huffman_tpu_torch.utils import timing
@@ -41,10 +41,10 @@ def pool(monkeypatch):
         made.append(nbytes)
         return torch.empty(nbytes, dtype=torch.uint8)
 
-    p = api.HostPool(LIMIT, alloc=alloc)
+    p = transfer.HostPool(LIMIT, alloc=alloc)
     p.made = made
-    monkeypatch.setattr(api, "host_pool", p)
-    monkeypatch.setattr(api, "_host_block_path",
+    monkeypatch.setattr(transfer, "host_pool", p)
+    monkeypatch.setattr(transfer, "_host_block_path",
                         lambda device, nbytes: nbytes >= MIN)
     return p
 
@@ -67,7 +67,7 @@ def _data(seed: int, n: int) -> np.ndarray:
 
 
 def _copy(n: int, fill: int = 7) -> np.ndarray:
-    return api.to_host(torch.full((n,), fill, dtype=torch.uint8))
+    return transfer.to_host(torch.full((n,), fill, dtype=torch.uint8))
 
 
 # what a caller keeps of a result: the array, or something made from it
@@ -102,7 +102,7 @@ def test_block_is_reused_only_after_every_view_is_dropped(pool, hold):
 
 def test_result_keeps_the_source_dtype_and_shape(pool):
     src = torch.arange(6 * KIB, dtype=torch.int32).reshape(3, 2 * KIB)
-    out = api.to_host(src)
+    out = transfer.to_host(src)
     assert out.dtype == np.int32 and out.shape == (3, 2 * KIB)
     np.testing.assert_array_equal(out, src.numpy())
     assert pool.made == [32 * KIB]               # 24 KiB, a power of two up
@@ -180,17 +180,18 @@ def test_cpu_sources_and_small_copies_stay_out_of_the_pool(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA call or a block on the CPU path")
 
-    monkeypatch.setattr(api, "host_pool", api.HostPool(LIMIT, alloc=refuse))
+    monkeypatch.setattr(transfer, "host_pool",
+                        transfer.HostPool(LIMIT, alloc=refuse))
     monkeypatch.setattr(torch.cuda, "_lazy_init", refuse)
     cuda = torch.device("cuda")
-    assert api._host_block_path(cuda, api.PINNED_MIN_BYTES)
-    assert not api._host_block_path(cuda, api.PINNED_MIN_BYTES - 1)
-    assert not api._host_block_path(torch.device("cpu"), 1 << 40)
-    assert api.host_block(torch.uint8, (1 << 30,), torch.device("cpu")) \
+    assert transfer._host_block_path(cuda, transfer.PINNED_MIN_BYTES)
+    assert not transfer._host_block_path(cuda, transfer.PINNED_MIN_BYTES - 1)
+    assert not transfer._host_block_path(torch.device("cpu"), 1 << 40)
+    assert transfer.host_block(torch.uint8, (1 << 30,), torch.device("cpu")) \
         is None
     before = _counts()
-    big = torch.full((api.PINNED_MIN_BYTES + 4,), 3, dtype=torch.uint8)
-    assert (api.to_host(big) == 3).all()
+    big = torch.full((transfer.PINNED_MIN_BYTES + 4,), 3, dtype=torch.uint8)
+    assert (transfer.to_host(big) == 3).all()
     mesh = make_mesh(devices=["cpu"] * 2)
     flat, _ = fetch(mesh, [big, big])
     assert flat.size == 2 * big.numel() and (flat == 3).all()
@@ -216,7 +217,7 @@ def test_fetch_fills_a_pooled_array_as_a_fresh_one(pool, monkeypatch, dtype):
     nbytes = flat.nbytes
     assert _change(before) == {"reused": 0, "new": nbytes, "declined": 0}
     assert np.shares_memory(flat, pool.blocks[0][0].numpy())
-    monkeypatch.setattr(api, "_host_block_path", lambda device, n: False)
+    monkeypatch.setattr(transfer, "_host_block_path", lambda device, n: False)
     want, want_offs = fetch(mesh, parts)
     assert flat.dtype == want.dtype and flat.shape == want.shape
     np.testing.assert_array_equal(flat, want)

@@ -23,9 +23,9 @@ import numpy as np
 import pytest
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from huffman_tpu_torch import api, container, wide
+from huffman_tpu_torch import api, container, transfer, wide
 from huffman_tpu_torch.config import CodecConfig, cdiv
-from huffman_tpu_torch.golden.wide_codec import N_SUB, ROUNDS, TILE_BYTES
+from huffman_tpu_torch.golden.wide_codec import ROUNDS, TILE_BYTES
 from huffman_tpu_torch.ops.decode import table_entries
 from huffman_tpu_torch.parallel.mesh import make_mesh
 from huffman_tpu_torch.parallel.pipeline import ShardedCodec
@@ -119,8 +119,8 @@ def _expect_dense_encode(data, _, res, tree):
              "encode.bits": ("encode.pass", passes),
              "encode.rebuild": ("encode", 1), "encode.pack": ("encode", 1),
              "encode.stream": ("encode", 1)},
-            (sample + 4 * nb + 2 * BOOK + n,
-             2 * HIST + 4 * nb * passes + 4 * enc.stream_words.size))
+            (sample + 2 * BOOK + n,
+             2 * HIST + 24 * passes + 4 * nb + 4 * enc.stream_words.size))
 
 
 def _dense_table(enc) -> int:
@@ -132,7 +132,7 @@ def _expect_dense_decode(data, enc, _, tree):
     return ({"decode": (None, 1), "decode.offsets": ("decode", 1),
              "decode.upload": ("decode", 1), "decode.kernel": ("decode", 1),
              "decode.output": ("decode", 1)},
-            (8 * nb + _dense_table(enc) + 4 * enc.stream_words.size,
+            (4 * nb + _dense_table(enc) + 4 * enc.stream_words.size,
              data.size))
 
 
@@ -145,19 +145,18 @@ def _expect_dense_range(data, enc, _, tree):
     return ({"decode": (None, 1), "decode.offsets": ("decode", 1),
              "decode.upload": ("decode", 1), "decode.kernel": ("decode", 1),
              "decode.output": ("decode", 1)},
-            (16 * k + _dense_table(enc)
+            (12 * k + _dense_table(enc)
              + 4 * _span_words(enc.block_bits, b0, b1),
              RANGE[1] - RANGE[0]))
 
 
 def _expect_wide_encode(data, _, enc, tree):
     nt = wide.num_tiles(data.size)
-    ns = nt * N_SUB
     return ({"encode": (None, 1), "encode.upload": ("encode", 1),
              "encode.codebook": ("encode", 1), "encode.pass": ("encode", 1),
              "encode.schedule": ("encode", 1), "encode.emit": ("encode", 1),
              "encode.stream": ("encode", 1)},
-            (data.size + 4 * ns + BOOK + 4 * nt,
+            (data.size + BOOK + 4 * nt,
              HIST + 1 + 8 + 4 * enc.payload_words.size + 4 * nt
              + 4 * ROUNDS * nt))
 
@@ -207,7 +206,7 @@ def _expect_sharded_encode(data, _, enc, tree):
              "encode.bases": ("encode", 1), "encode.pack": ("encode", 1),
              "encode.stream": ("encode", 1),
              "encode.assemble": ("encode", 1)},
-            (data.size + 4 * padded + BOOK * passes,
+            (data.size + BOOK * passes,
              8 * SHARDS + HIST * SHARDS + 4 * padded * passes
              + 4 * int(used.sum())))
 
@@ -216,7 +215,7 @@ def _expect_sharded_decode(data, enc, _, tree):
     nb = len(enc.block_bits)
     k = cdiv(nb, SHARDS)
     spans = [(s * k, min(nb, (s + 1) * k)) for s in range(SHARDS)]
-    h2d = sum(16 * (b1 - b0) + _dense_table(enc)
+    h2d = sum(12 * (b1 - b0) + _dense_table(enc)
               + 4 * _span_words(enc.block_bits, b0, b1) for b0, b1 in spans)
     return ({"decode": (None, 1), "decode.shard": ("decode", SHARDS),
              "decode.offsets": ("decode.shard", SHARDS),
@@ -227,7 +226,7 @@ def _expect_sharded_decode(data, enc, _, tree):
 
 
 def _expect_sharded_encode_wide(data, _, enc, tree):
-    ns = SHARDS * N_SUB                     # one tile a shard, three empty
+    # one tile a shard, three of them empty
     return ({"encode": (None, 1), "encode.upload": ("encode", 1),
              "encode.codebook": ("encode", 1),
              "encode.shard": ("encode", SHARDS),
@@ -235,7 +234,7 @@ def _expect_sharded_encode_wide(data, _, enc, tree):
              "encode.schedule": ("encode.shard", SHARDS),
              "encode.emit": ("encode.shard", SHARDS),
              "encode.stream": ("encode", 1)},
-            (data.size + 4 * ns + SHARDS * (BOOK + 4),
+            (data.size + SHARDS * (BOOK + 4),
              SHARDS * (8 + HIST) + SHARDS * (1 + 8)
              + 4 * enc.payload_words.size + SHARDS * 4 * (1 + ROUNDS)))
 
@@ -348,7 +347,7 @@ def test_container_counts_its_pieces_in_the_same_span_tree(
     counts), the span tree is DUMPS' or LOADS', and every span is opened
     on the calling thread."""
     call, root, children, passes = CONTAINER_CASES[case]
-    nbytes = api.PINNED_MIN_BYTES - 4 * (size == "whole")
+    nbytes = transfer.PINNED_MIN_BYTES - 4 * (size == "whole")
     monkeypatch.setattr(container, "WORKERS", 4)
     state = _payload_state(case, nbytes)
     threads = set()
