@@ -73,7 +73,9 @@ Phases, each printing one JSON line:
                api.encode_traced -> container.dumps_device ->
                container.loads_device -> api.decode, its container equal
                to phase 4's host container byte for byte, its output equal
-               to the input on the card, the launches of each kernel and
+               to the input on the card, one K1 pass (the codebook chosen
+               from the sample's and the exact histogram before K1), the
+               launches of each kernel and
                the bytes that crossed (under 1% of the input), and each
                stage's wall.
   5. wide_kernels - each wide kernel (K5 substream encode, the schedule and
@@ -1189,8 +1191,11 @@ def phase_device(card: str, data: np.ndarray, host_enc, errs: dict,
     require(torch.equal(y, x), "card-resident roundtrip != input")
     require(not any(plain_calls.values()),
             f"a plain version ran on CUDA tensors: {plain_calls}")
-    require(launches["encode"] == len(trace.capacities_tried)
-            and launches["histogram"] == 1 + trace.rebuilt
+    # a sampled tensor's histograms: the sample's and the exact one, both
+    # before K1, which then runs once a capacity tried
+    require(trace.sampled and len(trace.capacities_tried) == 1
+            and launches["encode"] == 1
+            and launches["histogram"] == 2
             and launches["scan"] == 2 and launches["pack"] == 1
             and launches["dense_decode"] == 1 and launches["crc32"] == 2,
             f"card-resident launches {launches} for {trace}")

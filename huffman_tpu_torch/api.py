@@ -10,9 +10,13 @@ on the codec's device alike.  On a CUDA device it is the JAX package's:
     the next one copies, and in one copy below; a device tensor stays;
   - K1 runs at each of capacities() until one holds every block, a
     narrow speculative capacity first where the codebook allows it;
-  - a byte without a code (MISS_FLAG) makes a sampled codebook be rebuilt
-    from the exact histogram of the blocks, and K1 runs again; with a
-    given codebook it raises ValueError;
+  - for host data a byte without a code (MISS_FLAG) makes a sampled
+    codebook be rebuilt from the exact histogram of the blocks, and K1
+    runs again; for a device tensor the sample's and the exact histogram
+    come down together and the exact one is taken where the sample lacks
+    a byte it counts, so K1 runs under the final codebook at once; a
+    flagged byte under any codebook that is not host data's sampled one
+    raises ValueError;
   - each pass's bit counts are reduced on the device (pass_counts: 24
     bytes cross), then the int64 offset scan and pack.
 Host data's Encoded gets the stream words and bit counts down once, at
@@ -53,9 +57,11 @@ if TYPE_CHECKING:
     from .models.base import CodebookModel
 
 # The kernel path's policies, as in the JAX package.  From SAMPLE_MIN_BYTES
-# on, the histogram reads every SAMPLE_EVERY-th block (a miss costs one
-# exact histogram and one more K1 pass); above CHUNK_BLOCKS blocks (16 MiB
-# at 1 KiB blocks) the input is staged CHUNK_BLOCKS blocks at a time.
+# on, the histogram reads every SAMPLE_EVERY-th block (for host data a miss
+# costs one exact histogram and one more K1 pass; a device tensor's exact
+# histogram is always taken, and no K1 pass is lost); above CHUNK_BLOCKS
+# blocks (16 MiB at 1 KiB blocks) the input is staged CHUNK_BLOCKS blocks
+# at a time.
 SAMPLE_MIN_BYTES = 4 * 1024 * 1024
 SAMPLE_EVERY = 16
 CHUNK_BLOCKS = 16384
@@ -105,10 +111,12 @@ class ResidentEncoded:
 
 @dataclasses.dataclass
 class EncodeTrace:
-    """How one encode ran: whether its codebook came from a sample, and was
-    rebuilt after a miss; K1's capacity (words) at each pass over the
-    blocks, in order, the last one the capacity that held; and the chunks
-    the input was staged in (0: one copy)."""
+    """How one encode ran: whether its codebook came from a sample, and
+    whether the exact one replaced it because the sample lacked a byte of
+    the input (found by K1's flag for host data, by the exact histogram
+    before K1 for a device tensor); K1's capacity (words) at each pass
+    over the blocks, in order, the last one the capacity that held; and
+    the chunks the input was staged in (0: one copy)."""
     sampled: bool = False
     rebuilt: bool = False
     capacities_tried: list = dataclasses.field(default_factory=list)
@@ -320,10 +328,11 @@ def encode_traced(data, cfg: CodecConfig = DEFAULT_CONFIG,
     (its children one encode.stage a staged chunk and encode.bits),
     encode.rebuild, encode.pack and encode.stream (the stream words and
     the bit counts down).  Of a tensor on `device` the root carries
-    resident=True, and the stages are encode.sample (gathered on the
-    device), encode.codebook, encode.pad (only where the input ends inside
-    a block), encode.pass (with encode.bits), encode.rebuild and
-    encode.pack."""
+    resident=True, and the stages are encode.pad (only where the input
+    ends inside a block), encode.sample (gathered on the device),
+    encode.codebook (with exact=True or False where a sample was taken:
+    whether the exact histogram chose the codebook), encode.pass (with
+    encode.bits) and encode.pack."""
     device = torch.device(device)
     trace = EncodeTrace()
     resident = _resident(data, device)
@@ -347,36 +356,48 @@ def encode_traced(data, cfg: CodecConfig = DEFAULT_CONFIG,
 
 def _encode_core(data, n: int, cfg: CodecConfig, codebook: Codebook | None,
                  model, device: torch.device, trace: EncodeTrace):
-    """The dense encode of data's n bytes: the first codebook
-    (_first_book); the blocks on `device` (a tensor's rows where they lie,
-    host data's uploaded, _upload); the exact codebook where none came
-    first; K1's passes (_k1_passes); the scan and pack (_pack).  Returns
-    the stream words and the int32 bit counts, both on the device, the
-    total bits and the final codebook."""
-    cb = _first_book(data, n, cfg, codebook, model, device, trace)
+    """The dense encode of data's n bytes: the blocks on `device` (a
+    tensor's rows where they lie, before the first codebook; host data's
+    uploaded after it, _upload); the first codebook (_first_book); the
+    exact codebook where none came first; K1's passes (_k1_passes); the
+    scan and pack (_pack).  Returns the stream words and the int32 bit
+    counts, both on the device, the total bits and the final codebook."""
     if isinstance(data, torch.Tensor):
         blocks, first_pass = resident_blocks(data, cfg), None
         valid = transfer.valid_on(n, blocks.shape[0], cfg.block_bytes,
                                   device)
+        cb = _first_book(data, n, cfg, codebook, model, device, trace,
+                         blocks)
+        rebuild = False
     else:
+        cb = _first_book(data, n, cfg, codebook, model, device, trace)
         blocks, valid, first_pass = _upload(data, cb, cfg, device, trace)
+        rebuild = trace.sampled
     if cb is None:
         with span("encode.codebook"):
             cb = codebook_for(blocks, n, cfg)
     cb, streams, bits_raw, counts = _k1_passes(cb, blocks, valid, n, cfg,
-                                               trace, first_pass)
+                                               trace, first_pass, rebuild)
     stream, bits = _pack(streams, bits_raw, counts, cfg)
     return stream, bits, counts.total, cb
 
 
 def _first_book(data, n: int, cfg: CodecConfig, codebook: Codebook | None,
-                model, device: torch.device,
-                trace: EncodeTrace) -> Codebook | None:
-    """The codebook before the blocks are on the device: the given one, the
-    model's, or on the kernel path from SAMPLE_MIN_BYTES on the sample's
-    (trace.sampled): every SAMPLE_EVERY-th block of data's n bytes,
-    gathered where data lies and, from the host, copied up.  None where
-    the exact book is to be built from the blocks."""
+                model, device: torch.device, trace: EncodeTrace,
+                blocks: torch.Tensor | None = None) -> Codebook | None:
+    """The codebook before K1 runs: the given one, the model's, or on the
+    kernel path from SAMPLE_MIN_BYTES on the sample's (trace.sampled):
+    every SAMPLE_EVERY-th block of data's n bytes, gathered where data
+    lies and, from the host, copied up.  None where the exact book is to
+    be built from the blocks.
+
+    With `blocks` (a device tensor's, already placed) the sample's
+    histogram and the exact one of the blocks' n bytes come down in one
+    copy, and one codebook is built: the sample's where it counts every
+    byte that the exact histogram counts, else the exact one
+    (trace.rebuilt).  Its codes are exactly the bytes its histogram
+    counts, so K1 flags no byte under it, and the codebook is the one
+    that K1's flag and a rebuild would have ended with."""
     if codebook is None and model is not None:
         with span("encode.codebook"):
             codebook = model.codebook_for(data)
@@ -386,10 +407,19 @@ def _first_book(data, n: int, cfg: CodecConfig, codebook: Codebook | None,
         return codebook
     with span("encode.sample"):
         sample = sample_rows(data, cfg, SAMPLE_EVERY)
-    with span("encode.codebook"):
+    with span("encode.codebook") as rec:
         if isinstance(sample, np.ndarray):
             sample = transfer.to_device(sample, device)
-        return codebook_for(sample, sample.numel(), cfg)
+        if blocks is None:
+            return codebook_for(sample, sample.numel(), cfg)
+        freqs = transfer.to_host(torch.stack([
+            hist_ops.histogram(sample), hist_ops.histogram(blocks, n)]))
+        trace.rebuilt = bool(((freqs[1] > 0) & (freqs[0] == 0)).any())
+        if rec is not None:
+            rec.attrs["exact"] = trace.rebuilt
+        return Codebook.from_frequencies_auto(freqs[int(trace.rebuilt)],
+                                              cfg.max_code_len,
+                                              cfg.narrow_tol)
 
 
 def _upload(arr: np.ndarray, cb: Codebook | None, cfg: CodecConfig,
@@ -446,16 +476,15 @@ def pass_counts(bits_raw: torch.Tensor) -> PassCounts:
 
 def _k1_passes(cb: Codebook, blocks: torch.Tensor, valid: torch.Tensor,
                n: int, cfg: CodecConfig, trace: EncodeTrace,
-               first_pass=None):
-    """K1 at each of capacities() until one holds every block, the book
-    rebuilt from the exact histogram of the resident blocks after a
-    sampled one (trace.sampled) missed; a byte without a code in any
-    other book raises ValueError.  first_pass(codes, lengths, cap), where
-    given, makes the first pass (the staged one).  Returns the final book,
-    K1's streams and raw bit counts on the device, and the last pass's
-    PassCounts."""
+               first_pass=None, rebuild: bool = False):
+    """K1 at each of capacities() until one holds every block.  With
+    `rebuild` (host data's sampled book) a byte without a code rebuilds
+    the book from the exact histogram of the resident blocks, once
+    (trace.rebuilt), and K1 runs again; under any other book it raises
+    ValueError.  first_pass(codes, lengths, cap), where given, makes the
+    first pass (the staged one).  Returns the final book, K1's streams and
+    raw bit counts on the device, and the last pass's PassCounts."""
     device = blocks.device
-    sampled = trace.sampled
     while True:
         codes, lengths = codebook_tensors(cb, device)
         sched = capacities(cb, cfg, device)
@@ -472,7 +501,7 @@ def _k1_passes(cb: Codebook, blocks: torch.Tensor, valid: torch.Tensor,
                 # next and feed the checks and the total
                 with span("encode.bits"):
                     counts = pass_counts(bits_raw)
-                missed = sampled and counts.flagged
+                missed = rebuild and counts.flagged
                 if missed:
                     break
                 if counts.flagged:
@@ -488,7 +517,7 @@ def _k1_passes(cb: Codebook, blocks: torch.Tensor, valid: torch.Tensor,
         # from the exact histogram of the resident input and encode again
         with span("encode.rebuild"):
             cb = codebook_for(blocks, n, cfg)
-        sampled, trace.rebuilt = False, True
+        rebuild, trace.rebuilt = False, True
 
 
 def _pack(streams: torch.Tensor, bits_raw: torch.Tensor,

@@ -2,7 +2,9 @@
 codec's device, container.dumps_device / loads_device and api.decode into
 a tensor, with the kernel path patched on (the CUDA kernels' plain
 versions run on CPU tensors), as bench_torch/test_bench.py's `small`
-fixture does.
+fixture does.  A sampled encode of a tensor takes the sample's and the
+exact histogram together and builds one codebook before K1, which then
+never misses.
 
 The device path's container equals the host path's byte for byte and the
 plain reference's sections (bench_torch/reference/dense.py), it decodes
@@ -26,10 +28,12 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from huffman_tpu_torch import api, container
+from huffman_tpu_torch import api, container, transfer
 from huffman_tpu_torch.config import CodecConfig
+from huffman_tpu_torch.models import FixedCodebook
 from huffman_tpu_torch.ops import crc32 as crc_ops
 from huffman_tpu_torch.ops.cuda import crc32 as k_crc
+from huffman_tpu_torch.ops.cuda import encode as k_encode
 from huffman_tpu_torch.ops.decode import table_entries
 from huffman_tpu_torch.utils import timing
 
@@ -102,7 +106,10 @@ def test_sampled_book_is_taken_on_the_device(kernel_path):
     x = torch.from_numpy(data.copy())
     _, tr = api.encode_traced(x, device="cpu")
     _, host_tr = api.encode_traced(data, device="cpu")
-    assert tr.sampled and tr == host_tr
+    # the same sample and decision; the card path makes only the pass that
+    # counts, where host data's K1 also ran one under the sample's book
+    assert tr.sampled and tr.rebuilt == host_tr.rebuilt
+    assert tr.capacities_tried == host_tr.capacities_tried[-1:]
     assert torch.equal(api.sample_rows(x, CFG, api.SAMPLE_EVERY),
                        torch.from_numpy(api.sample_rows(data, CFG,
                                                         api.SAMPLE_EVERY)))
@@ -187,11 +194,19 @@ def _miss_input() -> np.ndarray:
     return data
 
 
-def test_only_counts_tables_and_heads_cross(kernel_path):
+def test_only_counts_tables_and_heads_cross(kernel_path, monkeypatch):
     data = _miss_input()
     x = torch.from_numpy(data)
+    shapes, to_host = [], transfer.to_host
+
+    def recorded(src, *a, **k):
+        shapes.append(tuple(src.shape))
+        return to_host(src, *a, **k)
+
+    monkeypatch.setattr(transfer, "to_host", recorded)
     before = {k: c.n for k, c in timing.copied.items()}
     enc, tr = api.encode_traced(x, device="cpu")
+    assert shapes.count((2, 256)) == 1 and (256,) not in shapes
     buf = container.dumps_device(enc)
     out = api.decode(container.loads_device(buf), device="cpu")
     assert torch.equal(out, x)
@@ -199,9 +214,11 @@ def test_only_counts_tables_and_heads_cross(kernel_path):
     h2d = moved["h2d.pageable"] + moved["h2d.pinned"]
     d2h = moved["d2h.pageable"] + moved["d2h.pinned"]
     passes = len(tr.capacities_tried)
-    assert tr.sampled and tr.rebuilt
+    assert tr.sampled and tr.rebuilt and passes == 1
     tb = max(enc.codebook.max_len, 1)
-    assert h2d == 2 * BOOK + HEAD + table_entries(enc.codebook, tb).nbytes
+    # one book's tables up; the sample's and the exact histogram down in
+    # one (2, 256) copy, then 24 bytes a K1 pass
+    assert h2d == BOOK + HEAD + table_entries(enc.codebook, tb).nbytes
     assert d2h == 2 * HIST + 3 * 8 * passes + HEAD + 8
     assert h2d + d2h < data.size // 100 + (64 << 10)
 
@@ -246,11 +263,13 @@ def test_device_path_records_its_spans(kernel_path):
                         else idx[id(recs[orig.parent])])
         trees[local[0].name] = _tree(local)
     passes = len(tr.capacities_tried)
+    assert passes == 1
     assert trees["encode"] == {
         "encode": (None, 1), "encode.sample": ("encode", 1),
         "encode.codebook": ("encode", 1), "encode.pass": ("encode", passes),
-        "encode.bits": ("encode.pass", passes),
-        "encode.rebuild": ("encode", 1), "encode.pack": ("encode", 1)}
+        "encode.bits": ("encode.pass", passes), "encode.pack": ("encode", 1)}
+    book = next(r for r in recs if r.name == "encode.codebook")
+    assert book.attrs["exact"] is True
     assert trees["container.dumps"] == {
         "container.dumps": (None, 1),
         "container.head": ("container.dumps", 1),
@@ -262,6 +281,77 @@ def test_device_path_records_its_spans(kernel_path):
     assert trees["decode"] == {
         "decode": (None, 1), "decode.offsets": ("decode", 1),
         "decode.upload": ("decode", 1), "decode.kernel": ("decode", 1)}
+
+
+# The card path decides between the sample's codebook and the exact one
+# from the two histograms before K1; host data decides by K1's flag.  Both
+# end with the same codebook and container.  Each case names where a byte
+# outside the sample lies, if any, or where the codebook comes from.
+
+DECISION_N, DECISION_TAIL = 256 << 10, (255 << 10) + 37
+
+
+def _sample_holds(data: np.ndarray) -> np.ndarray:
+    """data with each byte it holds also in block 0, which is sampled."""
+    present = np.flatnonzero(np.bincount(data, minlength=256))
+    data[: present.size] = present
+    return data
+
+
+def _decision_input(case: str) -> np.ndarray:
+    # DECISION_TAIL ends in block 255, which the sample (every 16th
+    # block from 0) skips
+    n = DECISION_TAIL if case in ("miss_tail", "no_zero_tail") else DECISION_N
+    data = _input("pavle", n).copy()
+    if case == "no_zero_tail":
+        data[data == 0] = 1
+    data = _sample_holds(data)
+    if case in ("miss_unsampled", "given", "model"):
+        data[1024: 1024 + 64] = 201
+    if case == "miss_tail":
+        data[-3] = 203
+    assert case != "no_zero_tail" or not (data == 0).any()
+    return data
+
+
+DECISION_CASES = ["holds", "miss_unsampled", "miss_tail", "no_zero_tail",
+                  "given", "model"]
+
+
+def _one_flagged_pass(monkeypatch):
+    """K1's first call flags a byte without a code in block 0."""
+    real, calls = k_encode.encode_blocks, []
+
+    def flagged(*a, **k):
+        streams, bits = real(*a, **k)
+        if not calls:
+            bits[0] |= torch.iinfo(torch.int32).min
+        calls.append(1)
+        return streams, bits
+
+    monkeypatch.setattr(k_encode, "encode_blocks", flagged)
+
+
+@pytest.mark.parametrize("case", DECISION_CASES)
+def test_card_path_decides_the_book_before_k1(kernel_path, monkeypatch,
+                                              case):
+    monkeypatch.setattr(api, "SAMPLE_MIN_BYTES", 64 << 10)
+    data = _decision_input(case)
+    book = {"given": {"codebook": api.build_codebook(data, device="cpu")},
+            "model": {"model": FixedCodebook.train(data, CFG)}}.get(case, {})
+    enc, tr = api.encode_traced(torch.from_numpy(data.copy()), device="cpu",
+                                **book)
+    host, host_tr = api.encode_traced(data, device="cpu", **book)
+    assert container.dumps_device(enc).numpy().tobytes() == \
+        container.dumps(host)
+    assert (tr.sampled, tr.rebuilt) == (host_tr.sampled, host_tr.rebuilt)
+    assert tr.sampled == (not book)
+    assert tr.rebuilt == case.startswith("miss")
+    # pavle's bytes fit the speculative capacity: one pass
+    assert tr.capacities_tried == host_tr.capacities_tried[-1:] == [128]
+    _one_flagged_pass(monkeypatch)
+    with pytest.raises(ValueError, match="absent from the codebook"):
+        api.encode(torch.from_numpy(data.copy()), device="cpu", **book)
 
 
 def test_ragged_input_is_padded_on_the_device(kernel_path):
