@@ -78,6 +78,21 @@ Phases, each printing one JSON line:
                launches of each kernel and
                the bytes that crossed (under 1% of the input), and each
                stage's wall.
+  4c. planes - bf16 weights DFloat11's way: the split and merge kernels
+               (csrc/planes.cu) against their plain versions on 0 to
+               2^20 + 3 words at word offsets 0-8 (views off a 16-byte
+               address), on every bf16 bit pattern, and with planes at
+               byte offsets 1-4 (views into a container), with their
+               1 GB times beside their bound (4 bytes a word); the CRC
+               pass without the swap against zlib, copying or only
+               reading, from a start value or none; then one Nemotron-H-47B
+               MLP block (503,316,480 bf16 weights drawn as the benchmark's
+               traffic draws them) through api.encode_traced ->
+               container.dumps_device -> container.loads_device ->
+               api.decode, its version 4 container equal to the plain
+               reference's sections (bench_torch/reference/df11.py), its
+               output equal to the input bit for bit, each kernel's
+               launches, the bytes that crossed and each stage's wall.
   5. wide_kernels - each wide kernel (K5 substream encode, the schedule and
                K7 emit, K8 decode) against its plain version, exactly: at
                64 MiB (256 tiles) of the main profile with CUDA event times;
@@ -1573,6 +1588,181 @@ def phase_wide_main(card: str, data: np.ndarray, dense_bits: int) -> dict:
     return launches, blob, {"encode_wide": enc_s, "decode_wide": dec_s}
 
 
+def planes_work(n: int) -> tuple:
+    """(bytes, operations) of a split or merge of n words: 2 bytes a word
+    one way and two 1-byte planes the other; the shifts are not counted
+    (the card's bound is its memory)."""
+    return 4 * n, 0
+
+
+def phase_planes(card: str, errs: dict, times: dict) -> dict:
+    """The split and merge kernels and the CRC pass without the swap,
+    then a 1 GB bf16 block through the card path against the benchmark's
+    plain reference.  Returns the kernels' launches on that path."""
+    import zlib
+
+    from bench_torch import check
+    from bench_torch import gen as bench_gen
+    from bench_torch.reference import df11 as ref_df11
+    from huffman_tpu_torch import api, container
+    from huffman_tpu_torch.ops import crc32 as p_crc
+    from huffman_tpu_torch.ops import planes as p_planes
+    from huffman_tpu_torch.ops.cuda import crc32 as k_crc
+    from huffman_tpu_torch.ops.cuda import planes as k_planes
+    from huffman_tpu_torch.utils import timing
+
+    dev = torch.device("cuda")
+    cases = 0
+
+    def bits(t: torch.Tensor) -> torch.Tensor:
+        return t.view(torch.int16)
+
+    def check_planes(name: str, x: torch.Tensor) -> None:
+        nonlocal cases
+        e, s = k_planes.split_bf16(x)
+        pe, ps = p_planes.split_bf16_plain(x)
+        require(torch.equal(e, pe) and torch.equal(s, ps),
+                f"split {name}: != plain")
+        # the merge from planes at byte offsets 0-4, as inside a container
+        for off in range(5):
+            ve = torch.empty(x.numel() + off, dtype=torch.uint8,
+                             device=dev)[off:]
+            vs = torch.empty(x.numel() + 4 - off, dtype=torch.uint8,
+                             device=dev)[4 - off:]
+            ve.copy_(e)
+            vs.copy_(s)
+            require(torch.equal(bits(k_planes.merge_bf16(ve, vs)), bits(x)),
+                    f"merge {name} planes at offsets {off}, {4 - off}: "
+                    f"!= input")
+        require(torch.equal(bits(p_planes.merge_bf16_plain(e, s)), bits(x)),
+                f"plain merge {name}: != input")
+        cases += 1
+
+    rng = np.random.default_rng(21)
+    every = torch.arange(1 << 16, dtype=torch.int32, device=dev)
+    every = (every - (every >> 15 << 16)).to(torch.int16).view(torch.bfloat16)
+    check_planes("every_word", every)
+    for n in (0, 1, 7, 8, 9, 15, 16, 17, 4097, (1 << 20) + 3):
+        words = torch.from_numpy(rng.integers(-2**15, 2**15, n + 8,
+                                              dtype=np.int16)).to(dev)
+        for off in range(9) if n <= 4097 else (0, 1, 5):
+            check_planes(f"n{n}_word_offset{off}",
+                         words[off: off + n].view(torch.bfloat16))
+    errs["planes"] = 0
+
+    for w in (0, 1, 1023, 1025, 1024 * 1024 + 3):
+        words = rng.integers(0, 2**32, w, dtype=np.uint64).astype(np.uint32)
+        src = torch.from_numpy(words.view(np.int32)).to(dev)
+        head = bytes(range(37))
+        start = torch.tensor([zlib.crc32(head)], dtype=torch.int64).to(
+            torch.int32).to(dev)
+        for with_start in (False, True):
+            want = zlib.crc32(words.tobytes(),
+                              zlib.crc32(head) if with_start else 0)
+            for copy in (False, True):
+                dst = torch.zeros_like(src) if copy else None
+                crc = torch.empty(1, dtype=torch.int32, device=dev)
+                k_crc.copy_crc32(src, dst, crc, start if with_start else None)
+                got = int(crc.cpu().numpy().view(np.uint32)[0])
+                plain_crc = torch.empty_like(crc)
+                p_crc.copy_crc32_plain(src, None, plain_crc,
+                                       start if with_start else None)
+                require(got == want == int(plain_crc.cpu().numpy().view(
+                    np.uint32)[0]), f"copy_crc32 {w} words: {got:#x} != "
+                    f"zlib {want:#x}")
+                require(dst is None or torch.equal(dst, src),
+                        f"copy_crc32 {w} words: copy != source")
+
+    # one Nemotron-H-47B MLP block, drawn as the benchmark's traffic draws
+    # it, through the card path
+    traffic = json.load(open(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "bench_torch", "traffic",
+        "nemotron-h-47b-mlp-bf16.json")))
+    config = json.load(open(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "bench_torch", "configs",
+        "df11-bf16-device.json")))
+    raw = bench_gen.generate(traffic, 1, dev)
+    x = raw.view(torch.bfloat16)
+    n = x.numel()
+    e, s = k_planes.split_bf16(x)
+    ms = {}
+    for name, m in (("main", n), ("sixteenth", n // 16)):
+        xs, es, ss = x[:m], e[:m], s[:m]
+        ms[name] = {"split": graph_ms(lambda: k_planes.split_bf16(xs), 5),
+                    "merge": graph_ms(lambda: k_planes.merge_bf16(es, ss),
+                                      5)}
+    plain_ms = cuda_ms(lambda: p_planes.split_bf16_plain(x[: n // 16]), 1)
+    times["planes"] = (ms["sixteenth"]["split"], plain_ms,
+                       planes_work(n // 16))
+    bound_ms = bound(planes_work(n))[0]
+    del e, s
+
+    counters = {"split": k_planes.launches, "merge": k_planes.merge_launches,
+                "crc32": k_crc.launches, "copy_crc32": k_crc.copy_launches}
+    kernels, plain = path_counters()
+    counters.update({k: kernels[k] for k in ("encode", "pack", "histogram",
+                                             "scan", "dense_decode")})
+    plain_counters = {**plain, "planes": p_planes.cuda_calls,
+                      "crc32": p_crc.cuda_calls}
+    for c in [*counters.values(), *plain_counters.values()]:
+        c.n = 0
+    before = {k: c.n for k, c in timing.copied.items()}
+    walls = {}
+
+    def stage(name, fn):
+        got, walls[name] = wall(fn)
+        return got
+
+    enc, trace = stage("encode", lambda: api.encode_traced(x, device="cuda"))
+    buf = stage("dumps", lambda: container.dumps_device(enc))
+    back = stage("loads", lambda: container.loads_device(buf))
+    y = stage("decode", lambda: api.decode(back, device="cuda"))
+    launches = {k: c.n for k, c in counters.items()}
+    plain_calls = {k: c.n for k, c in plain_counters.items()}
+    moved = sum(c.n - before[k] for k, c in timing.copied.items())
+    require(isinstance(enc, api.PlanesEncoded) and y.is_cuda
+            and y.dtype == torch.bfloat16, "the planes path left the card")
+    require(torch.equal(bits(y), bits(x)), "bf16 roundtrip != input")
+    require(not any(plain_calls.values()),
+            f"a plain version ran on CUDA tensors: {plain_calls}")
+    require(launches["split"] == 1 and launches["merge"] == 1
+            and launches["crc32"] == 2 and launches["copy_crc32"] == 2
+            and launches["encode"] == len(trace.capacities_tried)
+            and launches["dense_decode"] == 1,
+            f"planes path launches {launches} for {trace}")
+    require(moved < 2 * n / 100, f"{moved} bytes crossed")
+    blob = buf.cpu().numpy().tobytes()
+    del enc, back, y, buf
+    torch.cuda.empty_cache()
+    sections, size, work = ref_df11.expect(raw, config)
+    mismatches = check.container_mismatches(blob, sections, size)
+    require(sum(mismatches.values()) == 0,
+            f"v4 container != reference: {mismatches}")
+    gb = 2 * n / 1e9
+    rec = {"phase": "planes", "cases": cases, "elements": n,
+           "planes_ms": ms, "planes_bytes": planes_work(n)[0],
+           "planes_bound_ms": bound_ms,
+           "planes_bound_share": {k: bound_ms / v
+                                  for k, v in ms["main"].items()},
+           "plain_split_ms_sixteenth": plain_ms,
+           "container_equal_reference": True, "roundtrip_exact": True,
+           "stored_bits_per_byte": 8 * len(blob) / (2 * n),
+           "exponent_bits_per_byte": 8 * work["stream_words"] * 4 / n,
+           "distinct_exponents": int(np.count_nonzero(np.frombuffer(
+               blob, np.uint8, 256, 40))),
+           "sampled": trace.sampled, "rebuilt": trace.rebuilt,
+           "capacities_tried": trace.capacities_tried,
+           "launches": launches, "bytes_crossed": moved,
+           "bytes_crossed_share": moved / (2 * n), "walls_s": walls,
+           "encode_GBps": gb / (walls["encode"] + walls["dumps"]),
+           "decode_GBps": gb / (walls["loads"] + walls["decode"]),
+           "card": card}
+    emit(rec)
+    del x, raw, blob, sections
+    torch.cuda.empty_cache()
+    return launches
+
+
 def wall(fn):
     """fn's result and its host wall in seconds, the device synchronized
     before and after."""
@@ -1798,6 +1988,7 @@ def main() -> int:
     from huffman_tpu_torch.ops.cuda import encode as k_encode
     from huffman_tpu_torch.ops.cuda import histogram as k_hist
     from huffman_tpu_torch.ops.cuda import pack2 as k_pack
+    from huffman_tpu_torch.ops.cuda import planes as k_planes
     from huffman_tpu_torch.ops.cuda import scan as k_scan
     from huffman_tpu_torch.ops.cuda import wide_decode as k_wdec
     from huffman_tpu_torch.ops.cuda import wide_emit as k_emit
@@ -1830,6 +2021,8 @@ def main() -> int:
     launches, single, exact, walls = phase_main(card, data)
     launches["crc32"] = phase_device(card, data, single, errs,
                                      times)["crc32"]
+    plane_launches = phase_planes(card, errs, times)
+    launches["planes"] = plane_launches["split"] + plane_launches["merge"]
     wide_launches, wide_blob, wide_walls = phase_wide_main(
         card, data, single.total_bits)
     # each kernel's launches on the two main paths (the histogram and the
@@ -1848,7 +2041,7 @@ def main() -> int:
     mods = {"encode": k_encode, "pack": k_pack, "dense_decode": k_decode,
             "wide_sub_encode": k_sub, "wide_emit": k_emit,
             "wide_decode": k_wdec, "histogram": k_hist, "scan": k_scan,
-            "crc32": k_crc}
+            "crc32": k_crc, "planes": k_planes}
     # times at the kernel cases' main-path shapes (64 MiB); library_ms is
     # torch.bincount's for the histogram, the torch.cumsum chain's (the
     # plain version, by graph replay) for the scan, and null for the

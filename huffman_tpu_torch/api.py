@@ -20,7 +20,11 @@ on the codec's device alike.  On a CUDA device it is the JAX package's:
   - each pass's bit counts are reduced on the device (pass_counts: 24
     bytes cross), then the int64 offset scan and pack.
 Host data's Encoded gets the stream words and bit counts down once, at
-the end; a device tensor's ResidentEncoded keeps them on the device.
+the end; a device tensor's ResidentEncoded keeps them on the device.  A
+bf16 tensor on the device is split into two byte planes, DFloat11's
+(arXiv:2504.11651; ops/cuda/planes.py): its exponent plane is encoded as
+a uint8 tensor is, and its sign-mantissa plane is kept raw, into a
+PlanesEncoded; decode merges the decoded exponents back with it.
 Elsewhere encode makes one exact pass at cfg.capacity_words, as the JAX
 package does off the TPU; on the CPU the kernel wrappers run their plain
 versions.  _kernel_path is the gate (the CPU tests patch it); nothing
@@ -48,6 +52,7 @@ from .ops import histogram as hist_ops
 from .ops.cuda import dense_decode as k_decode
 from .ops.cuda import encode as k_encode
 from .ops.cuda import pack2 as k_pack
+from .ops.cuda import planes as k_planes
 from .ops.decode import table_entries
 from .ops.encode import BITS_MASK, MISS_FLAG
 from .ops.scan import exclusive_bit_offsets
@@ -107,6 +112,17 @@ class ResidentEncoded:
     @property
     def ratio(self) -> float:
         return (self.total_bits / 8) / max(self.n_bytes, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanesEncoded:
+    """What encode returns for a bf16 tensor on the codec's device, and
+    container.loads_device reads back from a version 4 container: the
+    exponent plane's ResidentEncoded (its n_bytes the n elements), the
+    (n,) uint8 sign-mantissa plane on the same device, and n."""
+    exponent: ResidentEncoded
+    sign_mantissa: torch.Tensor
+    n: int
 
 
 @dataclasses.dataclass
@@ -304,7 +320,7 @@ def check_overflow(block_bits: np.ndarray, cfg: CodecConfig) -> np.ndarray:
 def encode(data, cfg: CodecConfig = DEFAULT_CONFIG,
            codebook: Codebook | None = None,
            model: "CodebookModel | None" = None,
-           device="cuda") -> Encoded | ResidentEncoded:
+           device="cuda") -> Encoded | ResidentEncoded | PlanesEncoded:
     """Encode a byte stream on `device`.
 
     The codebook comes from, in this order: `codebook`, then
@@ -312,16 +328,18 @@ def encode(data, cfg: CodecConfig = DEFAULT_CONFIG,
     the histogram), then the per-stream build (sampled on the kernel
     path, rebuilt exactly on a miss).  A given or modelled codebook that
     lacks a code for some input byte raises ValueError.  A uint8 tensor on
-    `device` is encoded where it lies, into a ResidentEncoded; any other
-    data is host data, encoded into an Encoded."""
+    `device` is encoded where it lies, into a ResidentEncoded; a bf16
+    tensor there into a PlanesEncoded, the codebook (given, modelled or
+    built) that of its exponent plane; any other data is host data,
+    encoded into an Encoded."""
     return encode_traced(data, cfg, codebook, model, device)[0]
 
 
 def encode_traced(data, cfg: CodecConfig = DEFAULT_CONFIG,
                   codebook: Codebook | None = None,
                   model: "CodebookModel | None" = None,
-                  device="cuda") -> tuple[Encoded | ResidentEncoded,
-                                          EncodeTrace]:
+                  device="cuda") -> tuple[Encoded | ResidentEncoded
+                                          | PlanesEncoded, EncodeTrace]:
     """encode, and how it ran (EncodeTrace).  Its stages run in spans
     (utils/timing.py) under a root "encode": encode.sample,
     encode.codebook, encode.upload, one encode.pass a pass over the blocks
@@ -332,9 +350,14 @@ def encode_traced(data, cfg: CodecConfig = DEFAULT_CONFIG,
     ends inside a block), encode.sample (gathered on the device),
     encode.codebook (with exact=True or False where a sample was taken:
     whether the exact histogram chose the codebook), encode.pass (with
-    encode.bits) and encode.pack."""
+    encode.bits) and encode.pack.  Of a bf16 tensor the root also carries
+    planes=True and its bytes are the tensor's, and encode.split
+    (elements, plane_bytes) comes first."""
     device = torch.device(device)
     trace = EncodeTrace()
+    if _resident(data, device) and data.dtype == torch.bfloat16:
+        return _encode_planes(data.reshape(-1), cfg, codebook, model,
+                              trace), trace
     resident = _resident(data, device)
     data = _resident_u8(data) if resident else as_u8(data)
     device = data.device if resident else device
@@ -352,6 +375,26 @@ def encode_traced(data, cfg: CodecConfig = DEFAULT_CONFIG,
             words = transfer.to_host(stream).view(np.uint32)
             block_bits = transfer.to_host(bits)
     return Encoded(words, total, block_bits, cb, n, cfg), trace
+
+
+def _encode_planes(x: torch.Tensor, cfg: CodecConfig,
+                   codebook: Codebook | None, model,
+                   trace: EncodeTrace) -> PlanesEncoded:
+    """The 1-D bf16 tensor x split into its planes (span encode.split), the
+    exponent plane encoded by _encode_core as a uint8 tensor is."""
+    n, device = x.numel(), x.device
+    if n == 0:
+        return PlanesEncoded(empty_encoded(cfg, codebook, device),
+                             torch.zeros(0, dtype=torch.uint8, device=device),
+                             0)
+    with span("encode", format="dense", bytes=2 * n, resident=True,
+              planes=True):
+        with span("encode.split", elements=n, plane_bytes=n):
+            exponent, sign_mantissa = k_planes.split_bf16(x)
+        stream, bits, total, cb = _encode_core(exponent, n, cfg, codebook,
+                                               model, device, trace)
+    return PlanesEncoded(ResidentEncoded(stream, total, bits, cb, n, cfg),
+                         sign_mantissa, n)
 
 
 def _encode_core(data, n: int, cfg: CodecConfig, codebook: Codebook | None,
@@ -575,15 +618,20 @@ def _decode_blocks(stream_words, word_base: torch.Tensor,
                                       table, tb, block_bytes)
 
 
-def decode(enc: Encoded | ResidentEncoded, device="cuda"):
+def decode(enc: Encoded | ResidentEncoded | PlanesEncoded, device="cuda"):
     """Decode every block.  An Encoded decodes on `device`, its bit counts
     and stream words copied up, into a host uint8 array; a
-    ResidentEncoded on its tensors' device, into a uint8 tensor there.
-    The offsets and the valid counts are made on the device.  Its stages
-    run in spans under a root "decode" (resident=True for a
-    ResidentEncoded): decode.offsets (the bit counts up and the device
-    scan), decode.upload (the stream words and the table), decode.kernel
-    and, for an Encoded, decode.output (the bytes down)."""
+    ResidentEncoded on its tensors' device, into a uint8 tensor there; a
+    PlanesEncoded likewise, its exponents then merged with its
+    sign-mantissa plane into a bf16 tensor there.  The offsets and the
+    valid counts are made on the device.  Its stages run in spans under a
+    root "decode" (resident=True for a ResidentEncoded, and planes=True,
+    its bytes the tensor's, for a PlanesEncoded): decode.offsets (the bit
+    counts up and the device scan), decode.upload (the stream words and
+    the table), decode.kernel, decode.merge for a PlanesEncoded and, for
+    an Encoded, decode.output (the bytes down)."""
+    if isinstance(enc, PlanesEncoded):
+        return _decode_planes(enc)
     resident = isinstance(enc, ResidentEncoded)
     device = enc.stream_words.device if resident else torch.device(device)
     if enc.n_bytes == 0:
@@ -591,20 +639,38 @@ def decode(enc: Encoded | ResidentEncoded, device="cuda"):
                 else np.zeros(0, np.uint8))
     attrs = {"resident": True} if resident else {}
     with span("decode", format="dense", bytes=enc.n_bytes, **attrs):
-        bb = enc.config.block_bytes
-        with span("decode.offsets"):
-            bits = (enc.block_bits if resident else transfer.to_device(
-                np.ascontiguousarray(enc.block_bits, np.int32), device))
-            offsets = exclusive_bit_offsets(bits)
-            valid = transfer.valid_on(enc.n_bytes, bits.numel(), bb,
-                                      device)
-        out = _decode_blocks(enc.stream_words, offsets.word_base,
-                             offsets.bit_shift, valid, enc.codebook, bb)
-        out = out.reshape(-1)[: enc.n_bytes]
+        out = _decode_stream(enc, device)
         if resident:
             return out
         with span("decode.output"):
             return transfer.to_host(out)
+
+
+def _decode_planes(enc: PlanesEncoded) -> torch.Tensor:
+    device = enc.sign_mantissa.device
+    if enc.n == 0:
+        return torch.zeros(0, dtype=torch.bfloat16, device=device)
+    with span("decode", format="dense", bytes=2 * enc.n, resident=True,
+              planes=True):
+        exponent = _decode_stream(enc.exponent, device)
+        with span("decode.merge"):
+            return k_planes.merge_bf16(exponent, enc.sign_mantissa)
+
+
+def _decode_stream(enc: Encoded | ResidentEncoded,
+                   device: torch.device) -> torch.Tensor:
+    """K4 over every block of enc on `device`: its n_bytes as a uint8
+    tensor there (spans decode.offsets, decode.upload, decode.kernel)."""
+    bb = enc.config.block_bytes
+    with span("decode.offsets"):
+        bits = (enc.block_bits if isinstance(enc, ResidentEncoded)
+                else transfer.to_device(
+                    np.ascontiguousarray(enc.block_bits, np.int32), device))
+        offsets = exclusive_bit_offsets(bits)
+        valid = transfer.valid_on(enc.n_bytes, bits.numel(), bb, device)
+    out = _decode_blocks(enc.stream_words, offsets.word_base,
+                         offsets.bit_shift, valid, enc.codebook, bb)
+    return out.reshape(-1)[: enc.n_bytes]
 
 
 def decode_block_span(enc: Encoded, b0: int, b1: int,

@@ -1,5 +1,5 @@
 """The .htz containers, version 1 (dense) and 3 (wide), byte-identical to
-huffman_tpu's.
+huffman_tpu's, and version 4 (bf16 planes, the port's own).
 
 Layout (integers little-endian), as in huffman_tpu/container.py:
 
@@ -24,6 +24,16 @@ and code lengths) crosses as 296 bytes, the block bit counts are copied on
 the device, and the payload's byte swap and its CRC-32 run in one kernel
 (ops/cuda/crc32.py).  The payload offset, 296 + 4 * NB, is a multiple of
 4, so the payload is written and read as words in place.
+
+Version 4 (DFloat11's planes of a bf16 tensor, api.PlanesEncoded), in
+card memory only (dumps_device, loads_device): v1's header with version 4
+and n the elements, the exponent plane's 256 code lengths and block bit
+counts, then a payload of its stream words, big-endian, followed by the n
+raw sign-mantissa bytes, then the CRC-32 of that whole payload.  The
+plane's part of the CRC goes on from the stream's on the card (copy_crc32,
+a pass without the swap) over its whole words; where n is not a multiple
+of 4 its last 1-3 bytes are added on the host.  loads_device's plane is a
+view of the buffer it reads.
 
 Version 3 (the wide format, golden/wide_codec.py), as in the JAX package:
 the same header with block_bytes := the tile size (TILE_BYTES), total_bits
@@ -57,12 +67,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .api import Encoded, ResidentEncoded
+from .api import Encoded, PlanesEncoded, ResidentEncoded
 from .codebook import Codebook
 from .config import CodecConfig, cdiv
 from .golden.wide_codec import MAXLEN, ROUNDS, TILE_BYTES
 from .ops.crc32 import crc32_combine
-from .ops.cuda.crc32 import swap_crc32
+from .ops.cuda.crc32 import copy_crc32, swap_crc32
 from .transfer import PINNED_MIN_BYTES, to_device, to_host
 from .utils import timing
 from .utils.timing import span
@@ -71,6 +81,7 @@ from .wide import WideEncoded
 MAGIC = b"HTZ1"
 VERSION = 1
 WIDE_VERSION = 3
+PLANES_VERSION = 4
 _HEADER = struct.Struct("<4sIIQIIQI")  # magic, ver, flags, n, bb, mcl, bits, nb
 FLAG_CRC32 = 1
 WORKERS = min(os.cpu_count() or 1, 8)     # threads of the pieces' pool
@@ -171,9 +182,10 @@ def _head(enc, version: int, checksum: bool, block_bytes: int,
         np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
 
 
-def _dense_head(enc, checksum: bool) -> bytes:
-    """_head of a v1 container: Encoded's or ResidentEncoded's."""
-    return _head(enc, VERSION, checksum, enc.config.block_bytes,
+def _dense_head(enc, checksum: bool, version: int = VERSION) -> bytes:
+    """_head of a v1 container, Encoded's or ResidentEncoded's, or of a v4
+    container, whose exponent plane's ResidentEncoded enc is."""
+    return _head(enc, version, checksum, enc.config.block_bytes,
                  enc.total_bits, len(enc.block_bits))
 
 
@@ -271,41 +283,85 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def dumps_device(enc: ResidentEncoded, checksum: bool = True
-                 ) -> torch.Tensor:
-    """dumps' bytes for a ResidentEncoded, as a uint8 tensor on its device,
-    under a root span "container.dumps" with device=True (children
-    container.head: the head's 296 bytes up and the bit counts copied;
-    container.crc: the payload's swap and CRC, waited for)."""
-    device = enc.stream_words.device
-    nb, n_words = enc.block_bits.numel(), cdiv(enc.total_bits, 32)
+def dumps_device(enc: ResidentEncoded | PlanesEncoded,
+                 checksum: bool = True) -> torch.Tensor:
+    """dumps' bytes for a ResidentEncoded, or a version 4 container for a
+    PlanesEncoded, as a uint8 tensor on its device, under a root span
+    "container.dumps" with device=True (children container.head: the
+    head's 296 bytes up and the bit counts copied; container.crc: the
+    stream's swap and CRC, waited for; for a PlanesEncoded
+    container.plane: the plane's copy and its CRC, waited for)."""
+    planes = isinstance(enc, PlanesEncoded)
+    stream = enc.exponent if planes else enc
+    device = stream.stream_words.device
+    nb, n_words = stream.block_bits.numel(), cdiv(stream.total_bits, 32)
     pay_off = overhead_bytes(nb)
     end = pay_off + 4 * n_words
-    with span("container.dumps", format="dense", bytes=enc.n_bytes,
-              device=True):
-        buf = torch.empty(end + 4 * checksum, dtype=torch.uint8,
+    plane = enc.n if planes else 0
+    with span("container.dumps", format="dense", bytes=stream.n_bytes
+              + plane, device=True):
+        buf = torch.empty(end + plane + 4 * checksum, dtype=torch.uint8,
                           device=device)
         with span("container.head"):
-            head = np.frombuffer(_dense_head(enc, checksum), np.uint8)
+            head = np.frombuffer(_dense_head(
+                stream, checksum, PLANES_VERSION if planes else VERSION),
+                np.uint8)
             to_device(head, out=buf[: head.size])
-            buf[head.size: pay_off].view(torch.int32).copy_(enc.block_bits)
+            buf[head.size: pay_off].view(torch.int32).copy_(stream.block_bits)
+        # the CRC field, or a scratch word without a checksum; a v4
+        # container's stream CRC goes to crcs[0], which the plane's goes on
+        # from (crcs[1] is scratch)
+        field = (buf[end + plane:] if checksum else
+                 torch.empty(4, dtype=torch.uint8, device=device))
+        crcs = torch.empty(2 * planes, dtype=torch.int32, device=device)
         with span("container.crc"):
-            crc = (buf[end:].view(torch.int32) if checksum else
-                   torch.empty(1, dtype=torch.int32, device=device))
-            swap_crc32(enc.stream_words[:n_words],
-                       buf[pay_off: end].view(torch.int32), crc, True)
+            swap_crc32(stream.stream_words[:n_words],
+                       buf[pay_off: end].view(torch.int32),
+                       crcs[:1] if planes else field.view(torch.int32), True)
             _synchronize(device)
+        if planes:
+            with span("container.plane"):
+                _plane_out(enc.sign_mantissa, buf[end: end + plane], crcs,
+                           field, checksum)
+                _synchronize(device)
     return buf
 
 
-def loads_device(buf: torch.Tensor) -> ResidentEncoded:
-    """loads for container bytes (version 1) in a uint8 tensor on a
-    device: a ResidentEncoded on that device, under a root span
-    "container.loads" with device=True (children container.head: the
-    head's 296 bytes down and parsed; container.crc: the payload's swap to
-    host order and its CRC, checked on the host).  Raises ValueError as
-    loads does: a bad magic or version, a truncated buffer, a CRC
-    mismatch."""
+def _plane_out(plane: torch.Tensor, out: torch.Tensor, crcs: torch.Tensor,
+               field: torch.Tensor, checksum: bool) -> None:
+    """Copy the raw plane into its place in a container, `out`, and write
+    to the 4 bytes `field` the CRC-32 of the stream and the plane, going on
+    from the stream's in crcs[0] (crcs[1] is scratch).  A plane at an
+    address that is not 4-byte aligned is copied first: its words are read
+    as such.  Where its length is not a multiple of 4, the CRC of its
+    whole words and its last bytes come down, and the field goes up."""
+    if plane.data_ptr() % 4:
+        plane = plane.clone()
+    whole = plane.numel() // 4 * 4
+    tail = plane[whole:]
+    copy_crc32(plane[:whole].view(torch.int32),
+               out[:whole].view(torch.int32),
+               crcs[1:2] if tail.numel() else field.view(torch.int32),
+               crcs[:1])
+    if tail.numel():
+        out[whole:].copy_(tail)
+        if checksum:
+            both = to_host(torch.cat([crcs[1:2].view(torch.uint8), tail]))
+            value = zlib.crc32(both[4:].tobytes(),
+                               int(both[:4].view("<u4")[0]))
+            to_device(np.array([value], "<u4").view(np.uint8), out=field)
+
+
+def loads_device(buf: torch.Tensor) -> ResidentEncoded | PlanesEncoded:
+    """loads for container bytes (version 1, or 4) in a uint8 tensor on a
+    device: a ResidentEncoded on that device (a PlanesEncoded whose plane
+    is a view of buf, or of its copy where buf is not 4-byte aligned),
+    under a root span "container.loads" with device=True (children
+    container.head: the head's 296 bytes down and parsed; container.crc:
+    the payload's swap to host order and its CRC, checked on the host;
+    for version 4 the stream's CRC is waited for, and container.plane
+    goes on over the plane and checks).  Raises ValueError as loads does:
+    a bad magic or version, a truncated buffer, a CRC mismatch."""
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise ValueError(f"loads_device: want a 1-D uint8 tensor, got "
                          f"{buf.dtype} of shape {tuple(buf.shape)}")
@@ -317,40 +373,76 @@ def loads_device(buf: torch.Tensor) -> ResidentEncoded:
             head = to_host(buf[:head_size]).tobytes()
             _, ver, flags, n_bytes, block_bytes, max_code_len, total_bits, \
                 nb = _header(head)
-            if ver != VERSION:
+            if ver not in (VERSION, PLANES_VERSION):
                 raise ValueError(f"unsupported container version {ver}")
             if len(head) < head_size:
                 raise ValueError("truncated HTZ container")
+            planes = ver == PLANES_VERSION
+            plane = n_bytes if planes else 0
             if rec is not None:
-                rec.attrs["bytes"] = n_bytes
+                rec.attrs["bytes"] = n_bytes + plane
             pay_off = overhead_bytes(nb)
             end = pay_off + 4 * cdiv(total_bits, 32)
-            if buf.numel() < end:
+            if buf.numel() < end + plane:
                 raise ValueError("truncated HTZ container")
-            if flags & FLAG_CRC32 and buf.numel() < end + 4:
+            crc_flag = bool(flags & FLAG_CRC32)
+            if crc_flag and buf.numel() < end + plane + 4:
                 raise ValueError(
                     "truncated HTZ container (missing payload CRC)")
             lens = np.frombuffer(head, np.uint8, 256, _HEADER.size)
+        stored = buf[end + plane: end + plane + 4 * crc_flag]
         with span("container.crc"):
             words = torch.empty((end - pay_off) // 4, dtype=torch.int32,
                                 device=device)
             crcs = torch.empty(2, dtype=torch.int32, device=device)
             swap_crc32(buf[pay_off: end].view(torch.int32), words, crcs[:1],
                        False)
-            if flags & FLAG_CRC32:
-                crcs[1:].copy_(buf[end: end + 4].view(torch.int32))
-                got, want = (int(v) for v in to_host(crcs).view(np.uint32))
-                if got != want:
-                    raise ValueError(
-                        f"HTZ payload CRC mismatch (stored {want:#010x}, "
-                        f"computed {got:#010x}) — container corrupt")
+            if planes:
+                _synchronize(device)
+            elif crc_flag:
+                _check_crc(crcs[:1], stored)
+        if planes:
+            sign_mantissa = buf[end: end + plane]
+            with span("container.plane"):
+                _plane_in(sign_mantissa, crcs, stored)
         block_bits = buf[head_size: pay_off].view(torch.int32).clone()
-    return ResidentEncoded(
+    exponent = ResidentEncoded(
         stream_words=words, total_bits=total_bits, block_bits=block_bits,
         codebook=Codebook.from_lengths(lens.astype(np.int32)),
         n_bytes=n_bytes,
         config=CodecConfig(block_bytes=block_bytes,
                            max_code_len=max_code_len))
+    return (PlanesEncoded(exponent, sign_mantissa, n_bytes) if planes
+            else exponent)
+
+
+def _check_crc(got: torch.Tensor, stored: torch.Tensor,
+               tail: torch.Tensor | None = None) -> None:
+    """Raise unless the (1,) int32 CRC got, gone on over the bytes `tail`
+    where given, is the 4 stored bytes; they come down in one copy."""
+    parts = [got.view(torch.uint8), stored]
+    if tail is not None:
+        parts.append(tail)
+    both = to_host(torch.cat(parts))
+    value, want = (int(v) for v in both[:8].view("<u4"))
+    if tail is not None:
+        value = zlib.crc32(both[8:].tobytes(), value)
+    if value != want:
+        raise ValueError(
+            f"HTZ payload CRC mismatch (stored {want:#010x}, "
+            f"computed {value:#010x}) — container corrupt")
+
+
+def _plane_in(plane: torch.Tensor, crcs: torch.Tensor,
+              stored: torch.Tensor) -> None:
+    """The CRC of a loaded plane, in place, going on from the stream's in
+    crcs[0], checked against the stored bytes (none: no CRC)."""
+    if not stored.numel():
+        return
+    whole = plane.numel() // 4 * 4
+    copy_crc32(plane[:whole].view(torch.int32), None, crcs[1:2], crcs[:1])
+    _check_crc(crcs[1:2], stored, plane[whole:] if whole < plane.numel()
+               else None)
 
 
 def dumps_wide(enc: WideEncoded, checksum: bool = True) -> bytes:

@@ -14,6 +14,14 @@
 // the source is the payload and the destination gets host-order words.
 // The CRC is of the payload bytes either way, taken in the same pass.
 //
+// copy_crc32_kernel is the same pass without the swap, for the raw
+// sign-mantissa plane that follows the stream in a container version 4
+// (container.dumps_device, loads_device): the words are copied as they
+// are (or, with no destination, only read), and the CRC may go on from
+// one already on the card, the stream's, so that it is that of the stream
+// and the plane together.  zlib's CRC of A B is (crc(A) + ~0) x^(8|B|) +
+// raw(B) + ~0, so a start value only changes the affine term.
+//
 // Design: CRCs of chunks combined by multiplying by x^(8 len) mod P, as
 // zlib's crc32_combine does.  Let raw(M) be the CRC with initial value 0
 // and no final inversion; it is linear, raw(A B) = raw(A) x^(8|B|) + raw(B)
@@ -57,7 +65,8 @@ struct CrcConsts {
   uint32_t x2n[X2N];        // x^(2^k) mod P
   uint32_t lane_shift[32];  // x^(8 * 4 * CRC_SEG * (31 - l)) mod P
   uint32_t step;            // x^(8 * 4 * CHUNK_WORDS * warps) mod P
-  uint32_t affine;          // ~0 x^(8 n) + ~0, n the payload bytes
+  uint32_t length;          // x^(8 n) mod P, n the payload bytes
+  uint32_t affine;          // ~0 x^(8 n) + ~0
 };
 
 // a * b mod P, bit-reflected (zlib's multmodp).
@@ -79,11 +88,18 @@ __host__ __device__ inline uint32_t x8nmodp(unsigned long long n,
   return p;
 }
 
-__global__ void __launch_bounds__(CRC_THREADS)
-    swap_crc32_kernel(const uint32_t* __restrict__ src,
-                      uint32_t* __restrict__ dst, long long n_words,
-                      long long pad, long long n_chunks, int host_order_in,
-                      uint32_t* __restrict__ crc_out, const CrcConsts c) {
+// The pass over the chunks of one launch: each warp's chunks swapped (SWAP)
+// or not and stored to dst (where given), and the XOR into *crc_out of
+// their raw CRCs, each shifted to the end of the stream.  crc_of_dst: the
+// CRC is of the stored words, else of the loaded ones.
+template <bool SWAP>
+__device__ __forceinline__ void crc_chunks(const uint32_t* __restrict__ src,
+                                           uint32_t* __restrict__ dst,
+                                           long long n_words, long long pad,
+                                           long long n_chunks,
+                                           bool crc_of_dst,
+                                           uint32_t* __restrict__ crc_out,
+                                           const CrcConsts& c) {
   extern __shared__ uint32_t smem[];
   uint32_t* table = smem;                   // table[32 b + l] = T[b]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -96,6 +112,7 @@ __global__ void __launch_bounds__(CRC_THREADS)
   uint32_t* tile = smem + 256 * 32 + warp * 32 * CRC_ROW;
   __syncthreads();
 
+  const bool store = SWAP || dst != nullptr;
   const long long warps = (long long)gridDim.x * CRC_WARPS;
   const uint32_t shift = c.lane_shift[lane];
   long long last = -1;
@@ -112,9 +129,9 @@ __global__ void __launch_bounds__(CRC_THREADS)
 #pragma unroll
     for (int k = 0; k < 32; ++k) {
       const long long r = w0 + 32 * k + lane;
-      const uint32_t y = __byte_perm(x[k], 0, 0x0123);
-      if (r >= 0 && r < n_words) __stcs(dst + r, y);
-      tile[k * CRC_ROW + lane] = host_order_in ? y : x[k];  // row k: lane k's
+      const uint32_t y = SWAP ? __byte_perm(x[k], 0, 0x0123) : x[k];
+      if (store && r >= 0 && r < n_words) __stcs(dst + r, y);
+      tile[k * CRC_ROW + lane] = crc_of_dst ? y : x[k];  // row k: lane k's
     }
     __syncwarp();
     uint32_t crc = 0;
@@ -137,7 +154,54 @@ __global__ void __launch_bounds__(CRC_THREADS)
         (unsigned long long)(n_chunks - 1 - last) * CHUNK_WORDS * 4;
     atomicXor(crc_out, multmodp(x8nmodp(after, c.x2n), acc));
   }
-  if (blockIdx.x == 0 && tid == 0) atomicXor(crc_out, c.affine);
+}
+
+__global__ void __launch_bounds__(CRC_THREADS)
+    swap_crc32_kernel(const uint32_t* __restrict__ src,
+                      uint32_t* __restrict__ dst, long long n_words,
+                      long long pad, long long n_chunks, int host_order_in,
+                      uint32_t* __restrict__ crc_out, const CrcConsts c) {
+  crc_chunks<true>(src, dst, n_words, pad, n_chunks, host_order_in, crc_out,
+                   c);
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicXor(crc_out, c.affine);
+}
+
+__global__ void __launch_bounds__(CRC_THREADS)
+    copy_crc32_kernel(const uint32_t* __restrict__ src,
+                      uint32_t* __restrict__ dst, long long n_words,
+                      long long pad, long long n_chunks,
+                      const uint32_t* __restrict__ start,
+                      uint32_t* __restrict__ crc_out, const CrcConsts c) {
+  crc_chunks<false>(src, dst, n_words, pad, n_chunks, false, crc_out, c);
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicXor(crc_out, start ? multmodp(c.length, *start ^ ~0u) ^ ~0u
+                             : c.affine);
+}
+
+}  // namespace
+
+namespace {
+
+// The constants of a launch over n_words words, and its grid.
+template <typename K>
+int crc_setup(K kernel, long long n_words, CrcConsts* c, long long* pad,
+              long long* n_chunks) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CRC_SMEM);
+  if (e != cudaSuccess) return -(int)e;
+  c->x2n[0] = X0 >> 1;                           // x^1
+  for (int k = 1; k < X2N; ++k)
+    c->x2n[k] = multmodp(c->x2n[k - 1], c->x2n[k - 1]);
+  for (int l = 0; l < 32; ++l)
+    c->lane_shift[l] = x8nmodp(4ull * CRC_SEG * (31 - l), c->x2n);
+  *n_chunks = (n_words + CHUNK_WORDS - 1) / CHUNK_WORDS;
+  *pad = *n_chunks * CHUNK_WORDS - n_words;
+  const int grid = resident_grid(kernel, CRC_THREADS, CRC_SMEM,
+                                 (*n_chunks + CRC_WARPS - 1) / CRC_WARPS);
+  c->step = x8nmodp(4ull * CHUNK_WORDS * grid * CRC_WARPS, c->x2n);
+  c->length = x8nmodp(4ull * n_words, c->x2n);
+  c->affine = multmodp(c->length, ~0u) ^ ~0u;
+  return grid;
 }
 
 }  // namespace
@@ -147,26 +211,35 @@ __global__ void __launch_bounds__(CRC_THREADS)
 // host_order_in, src's without) to *crc (4-byte aligned).
 HUFF_API int huff_swap_crc32(const void* src, void* dst, long long n_words,
                              int host_order_in, void* crc, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      swap_crc32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)CRC_SMEM);
-  if (e != cudaSuccess) return (int)e;
   CrcConsts c;
-  c.x2n[0] = X0 >> 1;                            // x^1
-  for (int k = 1; k < X2N; ++k) c.x2n[k] = multmodp(c.x2n[k - 1], c.x2n[k - 1]);
-  for (int l = 0; l < 32; ++l)
-    c.lane_shift[l] = x8nmodp(4ull * CRC_SEG * (31 - l), c.x2n);
-  const long long n_chunks = (n_words + CHUNK_WORDS - 1) / CHUNK_WORDS;
-  const long long pad = n_chunks * CHUNK_WORDS - n_words;
-  const int grid = resident_grid(swap_crc32_kernel, CRC_THREADS, CRC_SMEM,
-                                 (n_chunks + CRC_WARPS - 1) / CRC_WARPS);
-  c.step = x8nmodp(4ull * CHUNK_WORDS * grid * CRC_WARPS, c.x2n);
-  c.affine = multmodp(x8nmodp(4ull * n_words, c.x2n), ~0u) ^ ~0u;
+  long long pad, n_chunks;
+  const int grid = crc_setup(swap_crc32_kernel, n_words, &c, &pad, &n_chunks);
+  if (grid < 0) return -grid;
   cudaStream_t s = (cudaStream_t)stream;
-  e = cudaMemsetAsync(crc, 0, sizeof(uint32_t), s);
+  cudaError_t e = cudaMemsetAsync(crc, 0, sizeof(uint32_t), s);
   if (e != cudaSuccess) return (int)e;
   swap_crc32_kernel<<<grid, CRC_THREADS, CRC_SMEM, s>>>(
       (const uint32_t*)src, (uint32_t*)dst, n_words, pad, n_chunks,
       host_order_in, (uint32_t*)crc, c);
+  return (int)cudaGetLastError();
+}
+
+// Copy n_words 32-bit words of src into dst as they are (dst null: only
+// read them), and write to *crc the CRC-32 of their bytes, or, with start,
+// of the bytes whose CRC-32 is *start followed by theirs (zlib's
+// crc32(src, *start)).  All 4-byte aligned; src and dst do not overlap,
+// and crc is not start.
+HUFF_API int huff_copy_crc32(const void* src, void* dst, long long n_words,
+                             const void* start, void* crc, void* stream) {
+  CrcConsts c;
+  long long pad, n_chunks;
+  const int grid = crc_setup(copy_crc32_kernel, n_words, &c, &pad, &n_chunks);
+  if (grid < 0) return -grid;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(crc, 0, sizeof(uint32_t), s);
+  if (e != cudaSuccess) return (int)e;
+  copy_crc32_kernel<<<grid, CRC_THREADS, CRC_SMEM, s>>>(
+      (const uint32_t*)src, (uint32_t*)dst, n_words, pad, n_chunks,
+      (const uint32_t*)start, (uint32_t*)crc, c);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@ for CUDA tensors and runs swap_crc32_plain for CPU ones.  It byte-swaps
 32-bit words between the stream's host order and the payload's big-endian
 order, in either direction, and writes the CRC-32 of the payload bytes
 (zlib's) beside.  The JAX package has no such stage on the device: it
-swaps with numpy and takes zlib.crc32 on the host.
+swaps with numpy and takes zlib.crc32 on the host.  copy_crc32_plain is
+the same pass without the swap, its CRC optionally going on from another
+(ops/cuda/crc32.copy_crc32: the raw plane of a container version 4).
 
 The plain version takes the CRC as the kernel does, by pieces combined:
 CRCs of equal rows of the zero-padded payload, combined pairwise by
@@ -47,6 +49,25 @@ def swap_crc32_plain(src: torch.Tensor, dst: torch.Tensor,
     dst.copy_(swapped)
     payload = swapped if to_payload else src
     value = crc32_plain(word_bytes(payload))
+    crc.copy_((value - (value >> 31 << 32)).to(torch.int32).view(1))
+    return crc
+
+
+def copy_crc32_plain(src: torch.Tensor, dst: torch.Tensor | None,
+                     crc: torch.Tensor,
+                     start: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of copy_crc32: src's words copied to dst (where
+    given), and the CRC-32 of their bytes, going on from the one in
+    `start` where given, written to crc."""
+    if src.is_cuda:
+        cuda_calls.n += 1
+    if dst is not None:
+        dst.copy_(src)
+    data = word_bytes(src)
+    value = crc32_plain(data)
+    if start is not None:
+        value = crc32_combine(start.to(torch.int64)[0] & 0xFFFFFFFF, value,
+                              data.numel())
     crc.copy_((value - (value >> 31 << 32)).to(torch.int32).view(1))
     return crc
 

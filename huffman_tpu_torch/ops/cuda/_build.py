@@ -43,6 +43,9 @@ _SIGNATURES = {
     "huff_histogram": [_p, _ll, _p, _p],
     "huff_bit_offsets": [_p, _ll, _i, _i, _p, _p, _p, _p, _p],
     "huff_swap_crc32": [_p, _p, _ll, _i, _p, _p],
+    "huff_copy_crc32": [_p, _p, _ll, _p, _p, _p],
+    "huff_split_bf16": [_p, _p, _p, _ll, _p],
+    "huff_merge_bf16": [_p, _p, _p, _ll, _p],
 }
 
 

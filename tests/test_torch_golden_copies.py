@@ -209,8 +209,8 @@ def _imports(path: str) -> list[tuple[str, set]]:
 def test_layers_import_only_downwards():
     """The copy layer (transfer.py), the mesh and the ops import nothing of
     api, wide, container or parallel.pipeline; container.py takes only the
-    two dense result types from api; and the copy layer's names are not
-    found in api."""
+    dense result types from api (the bf16 planes' among them); and the copy
+    layer's names are not found in api."""
     from huffman_tpu_torch import api
     pkg = os.path.join(ROOT, "huffman_tpu_torch")
     lower = [os.path.join(pkg, "transfer.py"),
@@ -224,5 +224,5 @@ def test_layers_import_only_downwards():
     from_api = {name for name, modules in _imports(
         os.path.join(pkg, "container.py"))
         if "huffman_tpu_torch.api" in modules}
-    assert from_api == {"Encoded", "ResidentEncoded"}
+    assert from_api == {"Encoded", "ResidentEncoded", "PlanesEncoded"}
     assert not [n for n in TRANSFER_NAMES if hasattr(api, n)]

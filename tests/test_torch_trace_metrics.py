@@ -141,7 +141,7 @@ def test_every_new_reader_is_in_the_benchmark():
     names = {m["name"]: m for m in bench["per_layer"]}
     assert set(EXPECT) <= set(names)
     assert names["driver_ms.sample"]["workloads"] == [
-        "dense.pavle-1g", "device.pavle-1g"]
+        "dense.pavle-1g", "device.pavle-1g", "df11.nemotron-h-47b-mlp"]
     assert names["shards_ms.assemble"]["workloads"] == ["sharded4.pavle-1g"]
     assert names["container_pieces_share"]["workloads"] == [
         "dense.pavle-1g", "wide.pavle-1g", "sharded4.pavle-1g"]
