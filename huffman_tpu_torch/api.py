@@ -45,6 +45,7 @@ from typing import TYPE_CHECKING, NamedTuple
 import numpy as np
 import torch
 
+from . import codebook as codebooks
 from . import transfer
 from .codebook import Codebook
 from .config import DEFAULT_CONFIG, CodecConfig, cdiv
@@ -196,10 +197,21 @@ def codebook_tensors(cb: Codebook, device: torch.device):
 def codebook_for(data: torch.Tensor, n: int, cfg: CodecConfig) -> Codebook:
     """The codebook of the first n bytes of a device tensor (blocks, rows
     or a sample): its device histogram, the canonical code on the host
-    with cfg.narrow_tol's cap policy."""
-    freqs = transfer.to_host(hist_ops.histogram(data, n))
-    return Codebook.from_frequencies_auto(freqs, cfg.max_code_len,
-                                          cfg.narrow_tol)
+    with cfg.narrow_tol's cap policy (histogram_book)."""
+    return histogram_book(transfer.to_host(hist_ops.histogram(data, n)), cfg)
+
+
+def histogram_book(freqs: np.ndarray, cfg: CodecConfig) -> Codebook:
+    """Codebook.from_frequencies_auto of a host histogram under cfg, built
+    in span encode.build with the caps it priced (`caps`) and the
+    codebooks it finished (`books`)."""
+    done = codebooks.finished.n
+    with span("encode.build") as rec:
+        cb, caps = codebooks.auto_book(freqs, cfg.max_code_len,
+                                       cfg.narrow_tol)
+        if rec is not None:
+            rec.attrs.update(caps=caps, books=codebooks.finished.n - done)
+    return cb
 
 
 def sample_rows(x, cfg: CodecConfig, every: int):
@@ -345,7 +357,9 @@ def encode_traced(data, cfg: CodecConfig = DEFAULT_CONFIG,
     encode.codebook, encode.upload, one encode.pass a pass over the blocks
     (its children one encode.stage a staged chunk and encode.bits),
     encode.rebuild, encode.pack and encode.stream (the stream words and
-    the bit counts down).  Of a tensor on `device` the root carries
+    the bit counts down).  A codebook built from a histogram is built on
+    the host in encode.build (histogram_book), inside encode.codebook or
+    encode.rebuild.  Of a tensor on `device` the root carries
     resident=True, and the stages are encode.pad (only where the input
     ends inside a block), encode.sample (gathered on the device),
     encode.codebook (with exact=True or False where a sample was taken:
@@ -460,9 +474,7 @@ def _first_book(data, n: int, cfg: CodecConfig, codebook: Codebook | None,
         trace.rebuilt = bool(((freqs[1] > 0) & (freqs[0] == 0)).any())
         if rec is not None:
             rec.attrs["exact"] = trace.rebuilt
-        return Codebook.from_frequencies_auto(freqs[int(trace.rebuilt)],
-                                              cfg.max_code_len,
-                                              cfg.narrow_tol)
+        return histogram_book(freqs[int(trace.rebuilt)], cfg)
 
 
 def _upload(arr: np.ndarray, cb: Codebook | None, cfg: CodecConfig,

@@ -10,11 +10,17 @@ the same narrow-cap policy, so both packages give identical `lengths` and
 from __future__ import annotations
 
 import dataclasses
-import heapq
+from bisect import bisect_right
+from itertools import accumulate, groupby, repeat
+from operator import add, and_, lshift, or_
 
 import numpy as np
 
 from .config import NUM_SYMBOLS
+from .utils.timing import Counter
+
+# Codebooks finished from a histogram (Codebook._finish): one a build.
+finished = Counter()
 
 
 def byte_histogram_host(data) -> np.ndarray:
@@ -37,52 +43,116 @@ def entropy_bits_per_byte(freqs: np.ndarray) -> float:
 
 def huffman_code_lengths(freqs: np.ndarray) -> np.ndarray:
     """Unrestricted Huffman code lengths (greedy two-minimum merge)."""
-    freqs = np.asarray(freqs, dtype=np.int64)
-    syms = np.flatnonzero(freqs)
-    lengths = np.zeros(NUM_SYMBOLS, dtype=np.int32)
-    if len(syms) == 0:
-        return lengths
-    if len(syms) == 1:
-        lengths[syms[0]] = 1
-        return lengths
-    # (freq, tiebreak, leaf symbols): the tiebreak makes the merge order,
-    # and so the lengths, identical to the JAX package's.
-    heap = [(int(freqs[s]), int(s), [int(s)]) for s in syms]
-    heapq.heapify(heap)
-    tb = NUM_SYMBOLS
-    while len(heap) > 1:
-        fa, _, a = heapq.heappop(heap)
-        fb, _, b = heapq.heappop(heap)
-        for s in a + b:
-            lengths[s] += 1
-        heapq.heappush(heap, (fa + fb, tb, a + b))
-        tb += 1
-    return lengths
+    return _Lengths(freqs).free()
 
 
 def package_merge_lengths(freqs: np.ndarray, max_len: int) -> np.ndarray:
     """Optimal code lengths subject to length <= max_len (package-merge)."""
-    freqs = np.asarray(freqs, dtype=np.int64)
-    syms = np.flatnonzero(freqs)
-    n = len(syms)
-    lengths = np.zeros(NUM_SYMBOLS, dtype=np.int32)
-    if n == 0:
+    return _Lengths(freqs).merged(max_len)
+
+
+class _Lengths:
+    """The code lengths of one histogram of counts: the unrestricted
+    Huffman ones (free) and package-merge's at a cap (merged), both from
+    one sort of the live symbols by (count, symbol).  Each is made once:
+    the merge, and package-merge's levels, which a run to cap L shares
+    with every smaller cap."""
+
+    def __init__(self, freqs: np.ndarray):
+        freqs = np.asarray(freqs, dtype=np.int64)
+        syms = np.flatnonzero(freqs)
+        self.leaves = syms[np.argsort(freqs[syms], kind="stable")]
+        self.counts = freqs[self.leaves].tolist()
+        self.n = len(self.counts)
+        self._free = self.free_max = None
+        self._levels = None
+
+    def _lengths(self, of_leaves) -> np.ndarray:
+        lengths = np.zeros(NUM_SYMBOLS, dtype=np.int32)
+        lengths[self.leaves] = of_leaves
         return lengths
-    if n == 1:
-        lengths[syms[0]] = 1
-        return lengths
-    if n > (1 << max_len):
-        raise ValueError(f"cannot code {n} symbols with max length {max_len}")
-    orig = sorted((int(freqs[s]), (int(s),)) for s in syms)
-    pkg = list(orig)
-    for _ in range(max_len - 1):
-        paired = [(pkg[i][0] + pkg[i + 1][0], pkg[i][1] + pkg[i + 1][1])
-                  for i in range(0, len(pkg) - 1, 2)]
-        pkg = sorted(orig + paired)
-    for _, symset in pkg[: 2 * n - 2]:
-        for s in symset:
-            lengths[s] += 1
-    return lengths
+
+    def free(self) -> np.ndarray:
+        """The JAX package pops a heap of (count, tiebreak), where a leaf
+        breaks ties by its symbol and the k-th merged node by NUM_SYMBOLS
+        + k.  The same order comes off two queues: the leaves in (count,
+        symbol) order, and the merged nodes in the order they are made,
+        whose counts never fall; on equal counts the leaf goes first.
+        Each node keeps its parent, and a leaf's length is its depth."""
+        if self._free is not None:
+            return self._free
+        n = self.n
+        if n <= 1:
+            self.free_max = n
+            self._free = self._lengths(1)
+            return self._free
+        end = sum(self.counts) + 1          # past every count: an empty queue
+        leaf_w = self.counts + [end]
+        node_w = [end] * n                 # merged node k is node n + k
+        parent = [0] * (2 * n - 1)
+        i = j = 0
+        for k in range(n, 2 * n - 1):
+            if leaf_w[i] <= node_w[j]:
+                parent[i], w = k, leaf_w[i]
+                i += 1
+            else:
+                parent[n + j], w = k, node_w[j]
+                j += 1
+            if leaf_w[i] <= node_w[j]:
+                parent[i], w = k, w + leaf_w[i]
+                i += 1
+            else:
+                parent[n + j], w = k, w + node_w[j]
+                j += 1
+            node_w[k - n] = w
+        depth = [0] * (2 * n - 1)
+        for v in range(2 * n - 3, -1, -1):
+            depth[v] = depth[parent[v]] + 1
+        self.free_max = max(depth[:n])
+        self._free = self._lengths(depth[:n])
+        return self._free
+
+    def merged(self, cap: int) -> np.ndarray:
+        """The JAX package sorts items of (weight, symbol tuple) at each
+        level, a package joining two neighbours' tuples, and a symbol's
+        length is the number of times it occurs in the first 2n - 2 items
+        at the cap.  Counts are positive, so of two items of equal weight
+        neither tuple is a proper prefix of the other: equal weights are
+        ordered by the tuples' first symbols, and packages, which come
+        sorted, keep the order they are made in.  So an item is the int
+        (weight << 8) | first symbol, and a level is sorted(leaves +
+        packages), which is stable.  The first x items of a level hold a
+        prefix of the leaves and of the packages, and its packages are
+        made of the first 2 * packages items one level down: the lengths
+        are read walking down from x = 2n - 2."""
+        n = self.n
+        if n <= 1:
+            return self._lengths(1)
+        if n > (1 << cap):
+            raise ValueError(f"cannot code {n} symbols with max length {cap}")
+        if self._levels is None:
+            self._levels = [list(map(or_, map(lshift, self.counts, repeat(8)),
+                                     self.leaves.tolist()))]
+        keys, levels = self._levels[0], self._levels
+        while len(levels) < cap:
+            up = levels[-1]
+            up = keys + list(map(add, up[0::2],
+                                 map(and_, up[1::2], repeat(-256))))
+            up.sort()
+            levels.append(up)
+        x, taken = 2 * n - 2, [0] * (n + 1)
+        for level in reversed(levels[:cap]):
+            leaves = bisect_right(keys, level[x - 1]) if x else 0
+            taken[leaves] += 1
+            x = 2 * (x - leaves)
+        # leaf i's length: the levels that take more than i leaves
+        return self._lengths(list(accumulate(taken[:0:-1]))[::-1])
+
+    def capped(self, cap: int) -> np.ndarray:
+        """The lengths at most `cap` long: the unrestricted ones where they
+        fit, else package-merge's."""
+        free = self.free()
+        return self.merged(cap) if self.free_max > cap else free
 
 
 def kraft_sum(lengths: np.ndarray) -> float:
@@ -94,21 +164,24 @@ def kraft_sum(lengths: np.ndarray) -> float:
 
 def canonical_codes(lengths: np.ndarray) -> np.ndarray:
     """Canonical right-aligned code values: symbols ordered by (length,
-    value), codes counting up and left-shifted when the length grows."""
+    value), codes counting up and left-shifted when the length grows.
+    Each run of one length counts up from its first code; raises
+    OverflowError where a code does not fit 32 bits."""
     lengths = np.asarray(lengths, dtype=np.int32)
     codes = np.zeros(NUM_SYMBOLS, dtype=np.uint32)
-    order = np.lexsort((np.arange(NUM_SYMBOLS), lengths))
-    code = 0
-    prev_len = 0
-    for s in order:
-        L = int(lengths[s])
-        if L == 0:
-            continue
-        if prev_len:
-            code <<= L - prev_len
-        codes[s] = code
-        code += 1
-        prev_len = L
+    order = np.argsort(lengths, kind="stable")       # (length, symbol)
+    order = order[lengths[order] != 0]
+    base, runs, code, at, prev = [], [], 0, 0, None
+    for length, run in groupby(lengths[order].tolist()):
+        if prev is not None:
+            code <<= length - prev
+        k = len(list(run))
+        base.append(code - at)        # the run's codes: base + position
+        runs.append(k)
+        code, at, prev = code + k, at + k, length
+    if code - 1 > 0xFFFFFFFF:
+        raise OverflowError(f"canonical code {code - 1} does not fit 32 bits")
+    codes[order] = np.repeat(base, runs) + np.arange(at)
     return codes
 
 
@@ -124,8 +197,7 @@ def _window_overflow_fracs(freqs: np.ndarray,
     tot = f.sum()
     if tot <= 0:
         return 0.0, 0.0, 0.0
-    pmf = np.zeros(int(lengths.max(initial=0)) + 1)
-    np.add.at(pmf, np.asarray(lengths, np.int64), f / tot)
+    pmf = np.bincount(lengths, weights=f / tot)
     w2 = np.convolve(pmf, pmf)
     w4 = np.convolve(w2, w2)
     p4 = float(w4[33:].sum())
@@ -136,6 +208,15 @@ def _window_overflow_fracs(freqs: np.ndarray,
     return (float(1 - (1 - p4) ** 256),
             float(1 - (1 - p4) ** 256 * (1 - p8) ** 128),
             float(1 - (1 - p16) ** 64))
+
+
+def _mean_bits(freqs: np.ndarray, lengths: np.ndarray) -> float:
+    """Expected bits a byte of `freqs` under `lengths`."""
+    freqs = np.asarray(freqs, dtype=np.float64)
+    total = freqs.sum()
+    if total == 0:
+        return 0.0
+    return float((freqs * lengths).sum() / total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,14 +245,8 @@ class Codebook:
 
     @staticmethod
     def from_frequencies(freqs: np.ndarray, max_code_len: int = 16) -> "Codebook":
-        lengths = huffman_code_lengths(freqs)
-        if lengths.max(initial=0) > max_code_len:
-            lengths = package_merge_lengths(freqs, max_code_len)
-        cb = Codebook.from_lengths(lengths)
-        w4, w8, w16 = _window_overflow_fracs(freqs, lengths)
-        return dataclasses.replace(
-            cb, est_bpb=cb.expected_bits_per_byte(freqs),
-            est_w4_frac=w4, est_w8_frac=w8, est_w16_frac=w16)
+        lengths = _Lengths(freqs).capped(max_code_len)
+        return Codebook._finish(freqs, lengths, _mean_bits(freqs, lengths))
 
     @staticmethod
     def from_frequencies_auto(freqs: np.ndarray, max_code_len: int = 16,
@@ -179,18 +254,18 @@ class Codebook:
         """Prefer a cap-4 or cap-8 codebook when its expected size is within
         `narrow_tol` of the max_code_len one (the JAX package's policy; it
         keeps the two packages' codebooks, and so their streams, equal)."""
-        full = Codebook.from_frequencies(freqs, max_code_len)
-        if narrow_tol <= 0:
-            return full
-        base = full.expected_bits_per_byte(freqs)
-        n_live = int(np.count_nonzero(freqs))
-        for cap in (4, 8):
-            if cap >= full.max_len or n_live > (1 << cap):
-                continue
-            narrow = Codebook.from_frequencies(freqs, cap)
-            if narrow.expected_bits_per_byte(freqs) <= base * (1 + narrow_tol):
-                return narrow
-        return full
+        return auto_book(freqs, max_code_len, narrow_tol)[0]
+
+    @staticmethod
+    def _finish(freqs: np.ndarray, lengths: np.ndarray,
+                bits: float) -> "Codebook":
+        """The codebook of `lengths` with the estimates of `freqs`, `bits`
+        its expected bits a byte (_mean_bits)."""
+        finished.n += 1
+        w4, w8, w16 = _window_overflow_fracs(freqs, lengths)
+        return Codebook(codes=canonical_codes(lengths), lengths=lengths,
+                        max_len=int(lengths.max(initial=0)), est_bpb=bits,
+                        est_w4_frac=w4, est_w8_frac=w8, est_w16_frac=w16)
 
     @staticmethod
     def from_lengths(lengths: np.ndarray) -> "Codebook":
@@ -210,11 +285,7 @@ class Codebook:
             raise ValueError(f"invalid codebook: Kraft sum {ks} > 1")
 
     def expected_bits_per_byte(self, freqs: np.ndarray) -> float:
-        freqs = np.asarray(freqs, dtype=np.float64)
-        total = freqs.sum()
-        if total == 0:
-            return 0.0
-        return float((freqs * self.lengths).sum() / total)
+        return _mean_bits(freqs, self.lengths)
 
     def decode_table(self, table_bits: int | None = None):
         """Single-level decode table: entry i holds the (symbol, length) of
@@ -269,3 +340,27 @@ class Codebook:
         perm = np.zeros(pad, np.int32)
         perm[:n_live] = live
         return lim_b, off, perm, min_len
+
+
+def auto_book(freqs: np.ndarray, max_code_len: int = 16,
+              narrow_tol: float = 0.01) -> tuple[Codebook, tuple[int, ...]]:
+    """Codebook.from_frequencies_auto's codebook, and the caps whose
+    lengths it priced (max_code_len first).  One unrestricted merge serves
+    every cap; a narrow candidate is priced by its expected bits a byte
+    from its lengths alone, and only the chosen lengths become a
+    Codebook."""
+    made, f = _Lengths(freqs), np.asarray(freqs, dtype=np.float64)
+    lengths = made.capped(max_code_len)
+    bits, caps = _mean_bits(f, lengths), [max_code_len]
+    if narrow_tol > 0:
+        max_len = int(lengths.max(initial=0))
+        for cap in (4, 8):
+            if cap >= max_len or made.n > (1 << cap):
+                continue
+            caps.append(cap)
+            narrow = made.capped(cap)
+            narrow_bits = _mean_bits(f, narrow)
+            if narrow_bits <= bits * (1 + narrow_tol):
+                lengths, bits = narrow, narrow_bits
+                break
+    return Codebook._finish(f, lengths, bits), tuple(caps)

@@ -148,8 +148,7 @@ class ShardedCodec:
 
     def _codebook(self, d_rows, d_valid) -> Codebook:
         hist = histogram_sharded(self.mesh)(d_rows, d_valid)
-        return Codebook.from_frequencies_auto(hist, self.cfg.max_code_len,
-                                              self.cfg.narrow_tol)
+        return api.histogram_book(hist, self.cfg)
 
     def encode(self, data, codebook: Codebook | None = None) -> api.Encoded:
         """Sharded dense encode, equal to api.encode's result.

@@ -29,6 +29,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from huffman_tpu_torch import api, container, transfer
+from huffman_tpu_torch.codebook import Codebook
 from huffman_tpu_torch.config import CodecConfig
 from huffman_tpu_torch.models import FixedCodebook
 from huffman_tpu_torch.ops import crc32 as crc_ops
@@ -266,7 +267,9 @@ def test_device_path_records_its_spans(kernel_path):
     assert passes == 1
     assert trees["encode"] == {
         "encode": (None, 1), "encode.sample": ("encode", 1),
-        "encode.codebook": ("encode", 1), "encode.pass": ("encode", passes),
+        "encode.codebook": ("encode", 1),
+        "encode.build": ("encode.codebook", 1),
+        "encode.pass": ("encode", passes),
         "encode.bits": ("encode.pass", passes), "encode.pack": ("encode", 1)}
     book = next(r for r in recs if r.name == "encode.codebook")
     assert book.attrs["exact"] is True
@@ -281,6 +284,26 @@ def test_device_path_records_its_spans(kernel_path):
     assert trees["decode"] == {
         "decode": (None, 1), "decode.offsets": ("decode", 1),
         "decode.upload": ("decode", 1), "decode.kernel": ("decode", 1)}
+
+
+def test_card_encode_builds_one_book(kernel_path):
+    """A sampled card encode builds its codebook once on the host, in span
+    encode.build: the caps it priced from their lengths alone (pavle's
+    bytes: the capped book's 12 and the narrow 8; 4 holds too few
+    symbols), one codebook finished, and that codebook the exact
+    histogram's."""
+    data = _miss_input()
+    with profile(activities=[ProfilerActivity.CPU]):
+        enc, tr = api.encode_traced(torch.from_numpy(data), device="cpu")
+    recs = timing.spans()
+    (build,) = [r for r in recs if r.name == "encode.build"]
+    assert tr.sampled and tr.rebuilt
+    assert recs[build.parent].name == "encode.codebook"
+    assert build.attrs == {"caps": (CFG.max_code_len, 8), "books": 1}
+    want = Codebook.from_frequencies_auto(np.bincount(data, minlength=256),
+                                          CFG.max_code_len, CFG.narrow_tol)
+    assert np.array_equal(enc.codebook.lengths, want.lengths)
+    assert enc.codebook.est_bpb == want.est_bpb
 
 
 # The card path decides between the sample's codebook and the exact one
@@ -469,7 +492,7 @@ def test_traced_cell_reads_its_metrics(small_cell):
             "idle_share.decode_call", "pageable_share.encode",
             "pageable_share.decode", "container_ms.dumps.crc",
             "container_ms.loads.crc", "driver.k1_passes",
-            "driver_ms.sample"} <= got
+            "driver_ms.sample", "driver_ms.codebook"} <= got
     # no CUDA kernel runs on the CPU, so the kernel's share reads nothing
     assert "crc_roofline" not in got
 

@@ -583,7 +583,7 @@ def test_traced_cell_reads_its_metrics(small_cell):
             "copy_share.encode", "copy_share.decode", "container_ms.dumps",
             "container_ms.loads", "container_ms.dumps.crc",
             "container_ms.loads.crc", "driver.k1_passes",
-            "driver_ms.sample"} == got
+            "driver_ms.sample", "driver_ms.codebook"} == got
     # no CUDA kernel runs on the CPU, so the kernels' share reads nothing
     assert "planes_roofline" not in got
 

@@ -67,17 +67,19 @@ def _profiled(fn):
 
 def _tree(recs) -> dict:
     """{name: (parent's name, count)} of one call's spans, each inside its
-    parent's time."""
-    out = {}
+    parent's time; a name that opens under more than one parent maps to
+    its (parent's name, count) pairs, in order of the parents' names."""
+    seen = {}
     for r in recs:
         parent = None if r.parent is None else recs[r.parent]
         if parent is not None:
             assert parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
         pname = None if parent is None else parent.name
-        p, c = out.get(r.name, (pname, 0))
-        assert p == pname, (r.name, p, pname)
-        out[r.name] = (pname, c + 1)
-    return out
+        counts = seen.setdefault(r.name, {})
+        counts[pname] = counts.get(pname, 0) + 1
+    return {name: (next(iter(counts.items())) if len(counts) == 1
+                   else tuple(sorted(counts.items())))
+            for name, counts in seen.items()}
 
 
 def _by_direction(copied: dict) -> tuple[int, int]:
@@ -118,7 +120,8 @@ def _expect_dense_encode(data, _, res, tree):
              "encode.stage": ("encode.pass", tr.chunks),
              "encode.bits": ("encode.pass", passes),
              "encode.rebuild": ("encode", 1), "encode.pack": ("encode", 1),
-             "encode.stream": ("encode", 1)},
+             "encode.stream": ("encode", 1),
+             "encode.build": (("encode.codebook", 1), ("encode.rebuild", 1))},
             (sample + 2 * BOOK + n,
              2 * HIST + 24 * passes + 4 * nb + 4 * enc.stream_words.size))
 
@@ -153,7 +156,9 @@ def _expect_dense_range(data, enc, _, tree):
 def _expect_wide_encode(data, _, enc, tree):
     nt = wide.num_tiles(data.size)
     return ({"encode": (None, 1), "encode.upload": ("encode", 1),
-             "encode.codebook": ("encode", 1), "encode.pass": ("encode", 1),
+             "encode.codebook": ("encode", 1),
+             "encode.build": ("encode.codebook", 1),
+             "encode.pass": ("encode", 1),
              "encode.schedule": ("encode", 1), "encode.emit": ("encode", 1),
              "encode.stream": ("encode", 1)},
             (data.size + BOOK + 4 * nt,
@@ -202,6 +207,7 @@ def _expect_sharded_encode(data, _, enc, tree):
     used = ((base & 31) + totals + 31) >> 5
     return ({"encode": (None, 1), "encode.upload": ("encode", 1),
              "encode.codebook": ("encode", 1),
+             "encode.build": ("encode.codebook", 1),
              "encode.pass": ("encode", passes),
              "encode.bases": ("encode", 1), "encode.pack": ("encode", 1),
              "encode.stream": ("encode", 1),
@@ -229,6 +235,7 @@ def _expect_sharded_encode_wide(data, _, enc, tree):
     # one tile a shard, three of them empty
     return ({"encode": (None, 1), "encode.upload": ("encode", 1),
              "encode.codebook": ("encode", 1),
+             "encode.build": ("encode.codebook", 1),
              "encode.shard": ("encode", SHARDS),
              "encode.pass": ("encode.shard", SHARDS),
              "encode.schedule": ("encode.shard", SHARDS),
@@ -310,7 +317,10 @@ def test_path_records_its_span_tree_and_copies(case, kernel_path):
     assert root.attrs["bytes"] in (data.size, RANGE[1] - RANGE[0])
     assert _by_direction(root.attrs["copied"]) == want_bytes
     assert all(r.attrs == {} or r is root or set(r.attrs) <= {
-        "cap", "shard", "device"} for r in recs)
+        "cap", "shard", "device", "caps", "books"} for r in recs)
+    # each host build finishes one codebook, its caps priced first
+    assert all(r.attrs["books"] == 1 and r.attrs["caps"][0]
+               == CFG.max_code_len for r in recs if r.name == "encode.build")
 
 
 def _payload_state(case: str, nbytes: int):

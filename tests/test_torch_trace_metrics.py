@@ -44,10 +44,12 @@ def _calls():
         ("encode", (10.0, 11.0), {"bytes": GIB, "copied": _copied(
             h2d_pageable=100, h2d_pinned=300, d2h_pageable=100)},
          [("encode.sample", (10.0, 10.05)),
+          ("encode.build", (10.05, 10.062)),
           ("encode.assemble", (10.9, 10.98))]),
         ("encode", (12.0, 12.5), {"bytes": GIB, "copied": _copied(
             d2h_pageable=500)},
-         [("encode.sample", (12.0, 12.03))]),
+         [("encode.sample", (12.0, 12.03)),
+          ("encode.build", (12.03, 12.034))]),
         ("container.dumps", (11.0, 11.6), {"bytes": GIB, "copied": _copied(),
                                            "container_bytes": _pieces(600)},
          [("container.words", (11.0, 11.2)), ("container.crc", (11.2, 11.3)),
@@ -65,7 +67,8 @@ def _calls():
         ("encode", (25.0, 26.0), {"bytes": GIB, "copied": _copied(
             h2d_pageable=10**9)},
          [("encode.sample", (25.0, 25.9)),
-          ("encode.assemble", (25.9, 26.0))]),
+          ("encode.build", (25.9, 25.95)),
+          ("encode.assemble", (25.95, 26.0))]),
     ]
 
 
@@ -110,6 +113,7 @@ def _run(cards: int, trace=True):
 # hand-worked: the windows' encode calls are 1.5 s and hold 2 GiB
 EXPECT = {
     "driver_ms.sample": (50 + 30) / 2,
+    "driver_ms.codebook": (12 + 4) / 2,
     "shards_ms.assemble": 80 / 2,
     "container_ms.dumps.crc": 100.0,
     "container_ms.dumps.words": 200.0,
@@ -143,6 +147,9 @@ def test_every_new_reader_is_in_the_benchmark():
     assert names["driver_ms.sample"]["workloads"] == [
         "dense.pavle-1g", "device.pavle-1g", "df11.nemotron-h-47b-mlp"]
     assert names["shards_ms.assemble"]["workloads"] == ["sharded4.pavle-1g"]
+    assert names["driver_ms.codebook"]["workloads"] == [
+        "dense.pavle-1g", "wide.pavle-1g", "sharded4.pavle-1g",
+        "device.pavle-1g", "df11.nemotron-h-47b-mlp"]
     assert names["container_pieces_share"]["workloads"] == [
         "dense.pavle-1g", "wide.pavle-1g", "sharded4.pavle-1g"]
 
